@@ -1,0 +1,1 @@
+"""Models of the PyTorch/CUDA port (mirrors ompi_tpu.models)."""

@@ -1,0 +1,1 @@
+"""Operators of the PyTorch/CUDA port (mirrors ompi_tpu.ops)."""

@@ -1,0 +1,97 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one. The file
+imports torch and the port only, so it runs where JAX is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
+
+Tolerances: 2e-2 absolute on ``out`` and 1e-2 on ``lse`` (bf16 operands on
+both sides; the kernel rounds P to bf16 against a running row max, the
+plain version against the final one), and the exact sentinel on empty rows.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ompi_tpu_torch.ops import flash_attention as tfa
+from ompi_tpu_torch.ops import mxu as tmxu
+from ompi_tpu_torch.ops import ring_attention as tra
+
+RELATIONS = {"causal": (False, True), "full": (True, False),
+             "none": (False, False)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(shape, seed, device, dtype):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device, dtype) for _ in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout,shape", [("bthd", (2, 128, 3, 64)),
+                                          ("bhtd", (2, 3, 192, 128)),
+                                          ("bhtd", (2, 4, 256, 32)),
+                                          ("bthd", (1, 64, 2, 16))])
+@pytest.mark.parametrize("relation", sorted(RELATIONS))
+def test_flash_fwd_matches_plain(cuda, relation, layout, shape, dtype):
+    kf, kt = RELATIONS[relation]
+    q, k, v = _qkv(shape, 0, cuda, dtype)
+    before = tfa.KERNEL_LAUNCHES
+    o_k, l_k = tfa.flash_block(q, k, v, kf, kt, layout=layout)
+    assert tfa.KERNEL_LAUNCHES == before + 1
+    o_p, l_p = tfa.flash_block_reference(q, k, v, kf, kt, layout=layout)
+    torch.cuda.synchronize()
+    assert o_k.shape == q.shape and o_k.dtype == torch.float32
+    if relation == "none":
+        assert bool((o_k == 0).all())
+        assert bool((l_k == np.float32(tfa.NEG_BIG)).all())
+        return
+    torch.testing.assert_close(o_k, o_p, atol=2e-2, rtol=0)
+    torch.testing.assert_close(l_k, l_p, atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 96, 1, 64, device=cuda)
+    with pytest.raises(ValueError):
+        tfa.flash_block(q, q, q, False, True)
+    q = torch.zeros(1, 64, 1, 64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_block(q, q, q, False, True)
+
+
+@pytest.mark.cuda
+def test_ring_attention_on_card_launches_the_kernel_or_raises(cuda):
+    """On the card ring attention never runs plain attention unasked: a
+    shape the kernel takes launches it, one it cannot take raises."""
+    q, k, v = _qkv((1, 2, 128, 32), 3, cuda, torch.bfloat16)
+    before = tfa.KERNEL_LAUNCHES
+    o = tra.ring_attention(q, k, v, "sp", 1, layout="bhtd")
+    assert tfa.KERNEL_LAUNCHES == before + 1
+    p = tra.ring_attention(q, k, v, "sp", 1, mxu_dtype=torch.bfloat16,
+                           use_flash=False, layout="bhtd")
+    torch.testing.assert_close(o.float(), p.float(), atol=2e-2, rtol=2e-2)
+    q = torch.zeros(1, 2, 96, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tra.ring_attention(q, q, q, "sp", 1, layout="bhtd")
+
+
+@pytest.mark.cuda
+def test_contract_f32_on_card_matches_cpu(cuda):
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 96)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((96, 8, 16)).astype(np.float32))
+    ref = tmxu.contract_f32("btd,dhf->bhtf", x, w)
+    out = tmxu.contract_f32("btd,dhf->bhtf", x.to(cuda), w.to(cuda))
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-3, rtol=1e-4)
