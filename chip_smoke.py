@@ -12,15 +12,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 2. build every CUDA kernel of the port from ``ompi_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the model gives it, with times for the kernel, the plain version, the
-   PyTorch library call for the same function, and the card's bound;
-4. the main path: the flagship transformer forward at full width
-   (vocab 32768, d_model 1024, 8 heads, 8 layers, d_ff 4096, seq 1024,
-   batch 8, random weights from a seed) answering 3 requests, with the
-   kernel launch counts read around it and the logits held against the
-   same forward on the plain attention path; then ``ompi_tpu_torch.entry``
-   on the card, held the same way;
-5. with ``--profile``: the flagship forward under ``torch.profiler``, each
-   kernel's device time per request and the device's busy share;
+   PyTorch library call for the same function, and the card's bound:
+   ``flash_fwd``, then ``flash_dq`` and ``flash_dkv`` with a random output
+   cotangent and a non-zero lse cotangent;
+4. the main paths, at the flagship width (vocab 32768, d_model 1024,
+   8 heads, 8 layers, d_ff 4096, seq 1024, batch 8, random weights and
+   tokens from a seed), each with the kernel launch counts set to 0 just
+   before it and read just after:
+   - serving: the forward answering 3 requests, its logits held against
+     the same forward on the plain attention path; then
+     ``ompi_tpu_torch.entry`` on the card, held the same way;
+   - training: the first step's loss and every gradient held against the
+     plain attention path from the same parameters, then one warm-up step
+     and 3 timed steps of ``make_train_step`` (forward, backward, SGD);
+5. with ``--profile``: the flagship forward and one training step under
+   ``torch.profiler``, each kernel's device time and the device's busy
+   share;
 6. one JSON line describing every kernel, then the device JSON line last.
 
 Without a CUDA device, or outside a checkout, it exits non-zero before
@@ -46,9 +53,24 @@ FLAGSHIP = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8, d_ff=4096,
                 seq_len=1024)
 BATCH = 8
 REQUESTS = 3
+STEPS = 3
 RELATIONS = {"causal": (False, True), "full": (True, False),
              "none": (False, False)}
 OUT_TOL, LSE_TOL, LOGITS_TOL = 2e-2, 1e-2, 5e-2
+# backward kernels against their plain version: both round P and dS to
+# bf16, but a value near a rounding boundary may round apart after the two
+# sum in other orders (one bf16 ulp is 4e-3 relative), so 2e-2 of each
+# gradient's largest magnitude
+GRAD_TOL = 2e-2
+# training step against the plain attention path: flash_fwd rounds P to
+# bf16 against a running row max (as the TPU kernel does), the plain path
+# against the final one, which moves the activations by about one bf16 ulp.
+# At random init each gradient is a sum over the batch's 8192 tokens whose
+# terms largely cancel, so that shows as up to 4.9e-2 relative L2 error at
+# the flagship width (H100), as large on the tensors that no attention
+# backward reaches as on the others; the loss moves by about 2e-6. 1e-1
+# keeps a factor 2 over that; a wrong backward gives errors of order 1.
+LOSS_RTOL, GRAD_RL2 = 1e-3, 1e-1
 
 
 def require(cond: bool, what: str) -> None:
@@ -110,41 +132,328 @@ def flash_bound_ms(B, H, T, D, in_bytes):
     pairs = B * H * T * (T + 1) / 2
     flops = 4.0 * D * pairs
     nbytes = 3 * B * H * T * D * in_bytes + B * H * T * (D + 1) * 4
+    return _bound(flops, nbytes)
+
+
+def _bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
 
-def profile_forward(tfm, params, tokens, cfg, card) -> None:
-    """Each kernel's device time per request over REQUESTS forwards, and
+def flash_bwd_bounds_ms(B, H, T, D, in_bytes):
+    """Least times of flash_dq and flash_dkv for the causal block: q, k, v
+    (``in_bytes`` each) and dO (bf16) read once, lse and delta read once,
+    the f32 gradients written once; 6*D flops per visible pair for dq
+    (S, dP, dS.K), 8*D for dk/dv (S, dP, P^T.dO, dS^T.Q)."""
+    pairs = B * H * T * (T + 1) / 2
+    reads = B * H * T * (3 * D * in_bytes + 2 * D + 2 * 4)
+    grad = B * H * T * D * 4
+    return (_bound(6.0 * D * pairs, reads + grad),
+            _bound(8.0 * D * pairs, reads + 2 * grad))
+
+
+def bwd_inputs(fa, shape, layout, dtype, seed, kf, kt):
+    """q, k, v, a random output cotangent (bf16), the forward's lse, and
+    delta with a random, non-zero lse cotangent folded in."""
+    q, k, v = qkv(shape, seed, dtype)
+    rng = np.random.RandomState(seed + 100)
+    dout = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    out, lse = fa.flash_block_reference(q, k, v, kf, kt, layout=layout)
+    g_lse = torch.from_numpy(rng.standard_normal(tuple(lse.shape)).astype(
+        np.float32)).to("cuda")
+    delta = fa.flash_delta(out.to(torch.bfloat16), dout, g_lse, layout)
+    return q, k, v, dout, lse, delta
+
+
+def check_flash_bwd(fa, shape, layout, dtype, seed):
+    """flash_dq and flash_dkv against their plain version for the three
+    relations; returns the largest abs errors of dq and of dk/dv."""
+    err_dq, err_dkv = 0.0, 0.0
+    for rel, (kf, kt) in RELATIONS.items():
+        args = bwd_inputs(fa, shape, layout, dtype, seed, kf, kt)
+        got = fa.flash_block_bwd(*args, kf, kt, layout=layout)
+        ref = fa.flash_block_bwd_reference(*args, kf, kt, layout=layout)
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            require(bool(torch.isfinite(g).all()), f"flash {name} finite")
+            if rel == "none":
+                require(bool((g == 0).all()),
+                        f"flash {name} none block: exact zeros ({layout})")
+                continue
+            e, scale = float((g - r).abs().max()), float(r.abs().max())
+            require(e <= GRAD_TOL * scale,
+                    f"flash {name} {rel} {layout}: max err {e:.3e} > "
+                    f"{GRAD_TOL} x {scale:.3e}")
+            errs.append(e)
+        if rel == "none":
+            print(f"flash_bwd none   {layout} {tuple(shape)} {dtype}: dq, "
+                  f"dk, dv exactly 0", flush=True)
+            continue
+        print(f"flash_bwd {rel:6s} {layout} {tuple(shape)} {dtype}: "
+              f"max|err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}"
+              f" (of max|grad| {float(ref[0].abs().max()):.3e}, "
+              f"{float(ref[1].abs().max()):.3e}, "
+              f"{float(ref[2].abs().max()):.3e})", flush=True)
+        err_dq, err_dkv = max(err_dq, errs[0]), max(err_dkv, *errs[1:])
+    return err_dq, err_dkv
+
+
+def profile(name, fn, runs, card) -> None:
+    """Each kernel's device time per run over ``runs`` calls of ``fn``, and
     the device's busy share of the wall time, from torch.profiler."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(REQUESTS):
-            tfm.forward(params, tokens, cfg)
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.device_time_total, reverse=True)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    print(f"profile: {cfg}, batch {BATCH}, {REQUESTS} requests on {card}")
-    for e in kernels[:15]:
-        print(f"{e.device_time_total / 1e3 / REQUESTS:10.4f} ms/request"
-              f"  x{e.count // REQUESTS:<4d} {e.key[:100]}")
-    print(f"profile: wall {wall_ms / REQUESTS:.3f} ms/request, device "
-          f"{busy_ms / REQUESTS:.3f} ms/request, busy share "
+    print(f"profile {name}: {runs} runs on {card}")
+    for e in kernels[:20]:
+        print(f"{e.device_time_total / 1e3 / runs:10.4f} ms/{name}"
+              f"  x{e.count // runs:<4d} {e.key[:100]}")
+    print(f"profile {name}: wall {wall_ms / runs:.3f} ms/{name}, device "
+          f"{busy_ms / runs:.3f} ms/{name}, busy share "
           f"{busy_ms / wall_ms:.3f}, {len(kernels)} kernels", flush=True)
+
+
+def reset_launches(fa) -> None:
+    fa.KERNEL_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+
+
+def launches(fa):
+    return {"flash_fwd": fa.KERNEL_LAUNCHES, "flash_dq": fa.DQ_LAUNCHES,
+            "flash_dkv": fa.DKV_LAUNCHES}
+
+
+def phase_kernels(fa, card):
+    """Phase 3: every kernel against its plain version, and its times."""
+    B, H, T, D = BATCH, FLAGSHIP["n_heads"], FLAGSHIP["seq_len"], \
+        FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    res = {}
+    err = check_flash(fa, (B, H, T, D), "bhtd", torch.bfloat16, 0)
+    check_flash(fa, (B, H, T, D), "bhtd", torch.float32, 1)
+    check_flash(fa, (4, 256, 8, 32), "bthd", torch.bfloat16, 2)
+    check_flash(fa, (4, 8, 256, 32), "bhtd", torch.bfloat16, 4)
+
+    # each kernel is timed through the wrapper that launches it
+    sm = 1.0 / D ** 0.5
+    q, k, v = qkv((B, H, T, D), 3, torch.bfloat16)
+    ms = time_ms(lambda: fa.flash_fwd(q, k, v, False, True, sm, "bhtd"))
+    plain_ms = time_ms(lambda: fa.flash_block_reference(
+        q, k, v, False, True, layout="bhtd"))
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    bound_ms, bound_by = flash_bound_ms(B, H, T, D, 2)
+    print(f"flash_fwd causal {(B, H, T, D)} bf16: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}) on {card}", flush=True)
+    res["flash_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+    del q, k, v
+
+    e_dq, e_dkv = check_flash_bwd(fa, (B, H, T, D), "bhtd", torch.bfloat16, 0)
+    check_flash_bwd(fa, (B, H, T, D), "bhtd", torch.float32, 1)
+    check_flash_bwd(fa, (4, 256, 8, 32), "bthd", torch.bfloat16, 2)
+    check_flash_bwd(fa, (4, 8, 256, 32), "bhtd", torch.bfloat16, 4)
+
+    # times at the causal flagship shape; dO is bf16 already, so each
+    # wrapper call is its kernel and no cast
+    q, k, v, dout, lse, delta = bwd_inputs(fa, (B, H, T, D), "bhtd",
+                                           torch.bfloat16, 3, False, True)
+    args = (q, k, v, dout, lse, delta, False, True, sm, "bhtd")
+    dq_ms = time_ms(lambda: fa.flash_dq(*args))
+    dkv_ms = time_ms(lambda: fa.flash_dkv(*args))
+    plain_bwd_ms = time_ms(lambda: fa.flash_block_bwd_reference(*args))
+    # the library's flash backward: one autograd.grad call through the
+    # retained graph of scaled_dot_product_attention (dq, dk and dv in one)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl,
+                                                         is_causal=True)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        o, (ql, kl, vl), dout, retain_graph=True))
+    (dq_bound, dq_by), (dkv_bound, dkv_by) = flash_bwd_bounds_ms(
+        B, H, T, D, 2)
+    print(f"flash_dq causal {(B, H, T, D)} bf16: kernel {dq_ms:.4f} ms, "
+          f"bound {dq_bound:.4f} ms ({dq_by}); flash_dkv: kernel "
+          f"{dkv_ms:.4f} ms, bound {dkv_bound:.4f} ms ({dkv_by}); plain "
+          f"backward (dq, dk, dv) {plain_bwd_ms:.4f} ms; library backward "
+          f"(torch.autograd.grad of scaled_dot_product_attention, dq, dk "
+          f"and dv) {lib_bwd_ms:.4f} ms on {card}", flush=True)
+    res["flash_dq"] = dict(max_abs_err=e_dq, ms=dq_ms, plain_ms=plain_bwd_ms,
+                           bound_ms=dq_bound, bound_by=dq_by,
+                           library_ms=lib_bwd_ms)
+    res["flash_dkv"] = dict(max_abs_err=e_dkv, ms=dkv_ms,
+                            plain_ms=plain_bwd_ms, bound_ms=dkv_bound,
+                            bound_by=dkv_by, library_ms=lib_bwd_ms)
+    return res
+
+
+def phase_serve(fa, tfm, entry_mod, params, cfg, card):
+    """Phase 4, serving: REQUESTS flagship forwards, then entry("cuda")."""
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab, size=(BATCH, cfg.seq_len))).to("cuda")
+        for _ in range(REQUESTS)]
+
+    def serve(tokens):
+        return tfm.forward(params, tokens, cfg)
+
+    serve(batches[0])  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    reset_launches(fa)
+    times, first = [], None
+    for tokens in batches:
+        t0 = time.perf_counter()
+        logits = serve(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        require(tuple(logits.shape) == (BATCH, cfg.seq_len, cfg.vocab),
+                f"logits shape {tuple(logits.shape)}")
+        require(bool(torch.isfinite(logits).all()), "logits finite")
+        if first is None:
+            first = logits
+        del logits
+    counts = launches(fa)
+    require(counts == {"flash_fwd": REQUESTS * cfg.n_layers, "flash_dq": 0,
+                       "flash_dkv": 0},
+            f"serving launched {counts}, expected flash_fwd "
+            f"{REQUESTS * cfg.n_layers} times and no backward kernel")
+    plain = tfm.forward(params, batches[0], cfg, use_flash=False)
+    logits_err = float((first - plain).abs().max())
+    require(bool(torch.allclose(first, plain, atol=LOGITS_TOL,
+                                rtol=LOGITS_TOL)),
+            f"logits vs plain attention path: max abs err {logits_err}")
+    fwd_ms = 1e3 * sum(times) / len(times)
+    print(f"forward {cfg} batch {BATCH}: {fwd_ms:.3f} ms/request "
+          f"({', '.join(f'{1e3 * t:.3f}' for t in times)}), "
+          f"{BATCH * cfg.seq_len / (fwd_ms / 1e3):.1f} tokens/s, "
+          f"flash_fwd launches {counts['flash_fwd']}, max|logits - plain| "
+          f"{logits_err:.3e} on {card}", flush=True)
+    del first, plain
+
+    # the user's entry point, on the card
+    fn, fn_args = entry_mod.entry("cuda")
+    ecfg = entry_mod.ENTRY_CONFIG
+    reset_launches(fa)
+    e_logits = fn(*fn_args)
+    torch.cuda.synchronize()
+    e_launches = fa.KERNEL_LAUNCHES
+    require(e_launches == ecfg.n_layers,
+            f"entry(): flash_fwd launched {e_launches} times, expected "
+            f"{ecfg.n_layers}")
+    require(bool(torch.isfinite(e_logits).all()), "entry() logits finite")
+    e_plain = tfm.forward(*fn_args, ecfg, use_flash=False)
+    e_err = float((e_logits - e_plain).abs().max())
+    require(bool(torch.allclose(e_logits, e_plain, atol=LOGITS_TOL,
+                                rtol=LOGITS_TOL)),
+            f"entry() logits vs plain attention path: max abs err {e_err}")
+    print(f"entry() {ecfg}: logits {tuple(e_logits.shape)}, flash_fwd "
+          f"launches {e_launches}, max|logits - plain| {e_err:.3e}",
+          flush=True)
+    return counts, batches[0]
+
+
+def train_flops(tfm, params, cfg, tokens: int) -> float:
+    """bench_mfu's count: 6*N per token (forward 2N, backward 4N) plus
+    12*L*T*D per token for attention."""
+    n = sum(p.numel() for p in tfm.param_leaves(params))
+    return (6.0 * n + 12.0 * cfg.n_layers * cfg.seq_len * cfg.d_model) \
+        * tokens
+
+
+def leaf_names(params, prefix=""):
+    """Names of the parameters in ``param_leaves`` order."""
+    if isinstance(params, dict):
+        sep = "." if prefix else ""
+        return [n for k in sorted(params)
+                for n in leaf_names(params[k], f"{prefix}{sep}{k}")]
+    if isinstance(params, list):
+        return [n for i, x in enumerate(params)
+                for n in leaf_names(x, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def phase_train(fa, tfm, params, cfg, card):
+    """Phase 4, training: the first step's loss and gradients against the
+    plain attention path, then a warm-up step and STEPS timed steps."""
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, cfg.vocab, size=(BATCH, cfg.seq_len))
+    step, place = tfm.make_train_step(cfg, "cuda")
+    params, toks, tgts = place(params, toks, np.roll(toks, -1, axis=1))
+
+    loss_k, grads_k = tfm.loss_and_grads(params, toks, tgts, cfg)
+    loss_p, grads_p = tfm.loss_and_grads(params, toks, tgts, cfg,
+                                         use_flash=False)
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    names = leaf_names(params)
+    rl2 = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+           for n, a, b in zip(names, grads_k, grads_p)}
+    worst = max(rl2, key=rl2.get)
+    # gradients that only the forward kernel, and no attention backward,
+    # feeds: the last block's output projection and MLP, and ln_f
+    last = f"blocks[{cfg.n_layers - 1}]"
+    fwd_only = max(rl2[n] for n in names if n == "ln_f" or (
+        n.startswith(last) and not n.endswith(("ln1", "qkv"))))
+    require(bool(torch.isfinite(loss_k)) and loss_err <= LOSS_RTOL,
+            f"training loss {float(loss_k)} vs plain attention path "
+            f"{float(loss_p)}: relative error {loss_err:.3e}")
+    require(rl2[worst] <= GRAD_RL2,
+            f"gradients vs plain attention path: relative L2 error "
+            f"{rl2[worst]:.3e} on {worst}")
+    print(f"train step 1 vs plain attention path: loss {float(loss_k):.6f} "
+          f"vs {float(loss_p):.6f} (relative error {loss_err:.3e}), "
+          f"gradients' relative L2 error largest {rl2[worst]:.3e} "
+          f"({worst}), median {sorted(rl2.values())[len(rl2) // 2]:.3e} "
+          f"over {len(rl2)} tensors, largest on tensors no attention "
+          f"backward reaches {fwd_only:.3e}", flush=True)
+    del grads_k, grads_p
+
+    step(params, toks, tgts)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches(fa)
+    times, losses = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        loss, params = step(params, toks, tgts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = launches(fa)
+    want = STEPS * cfg.n_layers
+    require(counts == {name: want for name in counts},
+            f"training launched {counts}, expected {want} of each kernel")
+    require(all(np.isfinite(losses)), f"training losses {losses} finite")
+    step_ms = 1e3 * sum(times) / len(times)
+    tokens = BATCH * cfg.seq_len
+    flops = train_flops(tfm, params, cfg, tokens)
+    mfu = flops / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    print(f"train {cfg} batch {BATCH}: {step_ms:.3f} ms/step "
+          f"({', '.join(f'{1e3 * t:.3f}' for t in times)}), "
+          f"{tokens / (step_ms / 1e3):.1f} tokens/s, train_mfu {mfu:.4f} "
+          f"({flops / 1e12:.3f} TFLOP/step over "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TF/s), losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}, launches {counts} "
+          f"on {card}", flush=True)
+    return counts, (step, params, toks, tgts)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the flagship forward's kernels")
+                    help="also profile the flagship forward's and training "
+                         "step's kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -175,101 +484,35 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(logs)} "
           f"kernel(s)", flush=True)
 
-    # 3. kernel against plain version
-    B, H, T, D = BATCH, FLAGSHIP["n_heads"], FLAGSHIP["seq_len"], \
-        FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
-    err = check_flash(fa, (B, H, T, D), "bhtd", torch.bfloat16, 0)
-    check_flash(fa, (B, H, T, D), "bhtd", torch.float32, 1)
-    check_flash(fa, (4, 256, 8, 32), "bthd", torch.bfloat16, 2)
-    check_flash(fa, (4, 8, 256, 32), "bhtd", torch.bfloat16, 4)
+    # 3. kernels against plain versions
+    res = phase_kernels(fa, card)
 
-    q, k, v = qkv((B, H, T, D), 3, torch.bfloat16)
-    ms = time_ms(lambda: fa.flash_block(q, k, v, False, True, layout="bhtd"))
-    plain_ms = time_ms(lambda: fa.flash_block_reference(
-        q, k, v, False, True, layout="bhtd"))
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
-    bound_ms, bound_by = flash_bound_ms(B, H, T, D, 2)
-    print(f"flash_fwd causal {(B, H, T, D)} bf16: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}) on {card}", flush=True)
-    del q, k, v
-
-    # 4. the main path
+    # 4. the main paths
     cfg = tfm.Config(**FLAGSHIP)
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
-    rng = np.random.RandomState(0)
-    batches = [torch.from_numpy(rng.randint(
-        0, cfg.vocab, size=(BATCH, cfg.seq_len))).to("cuda")
-        for _ in range(REQUESTS)]
-
-    def serve(tokens):
-        return tfm.forward(params, tokens, cfg)
-
-    serve(batches[0])  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
-    fa.KERNEL_LAUNCHES = 0
-    times, first = [], None
-    for tokens in batches:
-        t0 = time.perf_counter()
-        logits = serve(tokens)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        require(tuple(logits.shape) == (BATCH, cfg.seq_len, cfg.vocab),
-                f"logits shape {tuple(logits.shape)}")
-        require(bool(torch.isfinite(logits).all()), "logits finite")
-        if first is None:
-            first = logits
-        del logits
-    launches = fa.KERNEL_LAUNCHES
-    require(launches == REQUESTS * cfg.n_layers,
-            f"flash_fwd launched {launches} times on the main path, "
-            f"expected {REQUESTS * cfg.n_layers}")
-    plain = tfm.forward(params, batches[0], cfg, use_flash=False)
-    logits_err = float((first - plain).abs().max())
-    require(bool(torch.allclose(first, plain, atol=LOGITS_TOL,
-                                rtol=LOGITS_TOL)),
-            f"logits vs plain attention path: max abs err {logits_err}")
-    fwd_ms = 1e3 * sum(times) / len(times)
-    print(f"forward {cfg} batch {BATCH}: {fwd_ms:.3f} ms/request "
-          f"({', '.join(f'{1e3 * t:.3f}' for t in times)}), "
-          f"{BATCH * cfg.seq_len / (fwd_ms / 1e3):.1f} tokens/s, "
-          f"flash_fwd launches {launches}, max|logits - plain| "
-          f"{logits_err:.3e} on {card}", flush=True)
-
-    # the user's entry point, on the card
-    fn, fn_args = entry_mod.entry("cuda")
-    ecfg = entry_mod.ENTRY_CONFIG
-    fa.KERNEL_LAUNCHES = 0
-    e_logits = fn(*fn_args)
-    torch.cuda.synchronize()
-    e_launches = fa.KERNEL_LAUNCHES
-    require(e_launches == ecfg.n_layers,
-            f"entry(): flash_fwd launched {e_launches} times, expected "
-            f"{ecfg.n_layers}")
-    require(bool(torch.isfinite(e_logits).all()), "entry() logits finite")
-    e_plain = tfm.forward(*fn_args, ecfg, use_flash=False)
-    e_err = float((e_logits - e_plain).abs().max())
-    require(bool(torch.allclose(e_logits, e_plain, atol=LOGITS_TOL,
-                                rtol=LOGITS_TOL)),
-            f"entry() logits vs plain attention path: max abs err {e_err}")
-    print(f"entry() {ecfg}: logits {tuple(e_logits.shape)}, flash_fwd "
-          f"launches {e_launches}, max|logits - plain| {e_err:.3e}",
-          flush=True)
-    del e_logits, e_plain, fn_args
+    serve_counts, tokens = phase_serve(fa, tfm, entry_mod, params, cfg, card)
+    train_counts, train_args = phase_train(fa, tfm, params, cfg, card)
 
     # 5. where the time goes
     if args.profile:
-        profile_forward(tfm, params, batches[0], cfg, card)
+        profile("request", lambda: tfm.forward(params, tokens, cfg),
+                REQUESTS, card)
+        step, p, toks, tgts = train_args
+        profile("step", lambda: step(p, toks, tgts), 1, card)
 
     # 6. results
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ompi_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ompi_tpu/ops/flash_attention.py:101",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}]}), flush=True)
+    sources = {"flash_fwd": ("flash_fwd.cu", 101),
+               "flash_dq": ("flash_bwd.cu", 192),
+               "flash_dkv": ("flash_bwd.cu", 231)}
+    kernels = []
+    for name, (src, line) in sources.items():
+        n = serve_counts[name] if name == "flash_fwd" else train_counts[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ompi_tpu_torch/csrc/{src}",
+            "replaces": f"ompi_tpu/ops/flash_attention.py:{line}",
+            "launches": n, **res[name]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

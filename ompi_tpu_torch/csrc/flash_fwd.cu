@@ -28,93 +28,16 @@
 // scores). The heaviest causal Q tiles are scheduled first. No TMA, no
 // wgmma and no warp specialisation yet: those are the next steps for speed.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
-#include <type_traits>
+// The fragment loads below stay written out rather than going through
+// flash_common.cuh's load_a/load_bt/load_b: that form measured slower on
+// the H100 (PERF.md, PR 2).
 
-typedef __nv_bfloat16 bf16;
-
-static constexpr int BQ = 64;
-static constexpr int BK = 64;
-static constexpr int NTHREADS = (BQ / 16) * 32;
-static constexpr float NEG_BIG = -1e30f;
-static constexpr float LOG2E = 1.4426950408889634f;
-static constexpr float LN2 = 0.6931471805599453f;
-
-// shared-memory row stride: 8 bf16 of padding keep the fragment loads of
-// the 8 row groups of a warp on distinct banks
+// shared memory of a block: the Q tile and two (K, V) tile pairs
 template <int D>
-struct Tile {
-  static constexpr int DP = D + 8;
-  static constexpr size_t smem = (size_t)(BQ + 4 * BK) * DP * sizeof(bf16);
-};
-
-static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-static __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-static __device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a . b for one 16x8x16 tile (A row-major 16x16, B col-major 16x8)
-static __device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                                const uint32_t (&a)[4],
-                                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-static __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-static __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows x D elements at src (row stride st) -> bf16 rows of stride DP at dst,
-// 8 elements (16 bytes of bf16) per thread and step
-template <int D, typename T>
-static __device__ __forceinline__ void load_rows(bf16* dst, const T* src,
-                                                 long long st, int rows,
-                                                 int tid) {
-  constexpr int CPR = D / 8;
-  for (int i = tid; i < rows * CPR; i += NTHREADS) {
-    const int r = i / CPR;
-    const int c = (i - r * CPR) * 8;
-    bf16* d = dst + r * Tile<D>::DP + c;
-    const T* s = src + r * st + c;
-    if constexpr (std::is_same<T, bf16>::value) {
-      cp_async16(d, s);
-    } else {
-      const float4 a = *reinterpret_cast<const float4*>(s);
-      const float4 b = *reinterpret_cast<const float4*>(s + 4);
-      uint4 u;
-      u.x = pack_bf16(a.x, a.y);
-      u.y = pack_bf16(a.z, a.w);
-      u.z = pack_bf16(b.x, b.y);
-      u.w = pack_bf16(b.z, b.w);
-      *reinterpret_cast<uint4*>(d) = u;
-    }
-  }
+static constexpr size_t fwd_smem() {
+  return (size_t)(BQ + 4 * BK) * Row<D>::bytes;
 }
 
 template <int D, typename T>
@@ -125,7 +48,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long q_sb, long long q_sh, long long q_st,
                  long long k_sb, long long k_sh, long long k_st,
                  int keep_full, int keep_tri, float sm_scale) {
-  constexpr int DP = Tile<D>::DP;
+  constexpr int DP = Row<D>::DP;
   constexpr int KSTEPS = D / 16;  // depth steps of Q.K^T
   constexpr int NT_S = BK / 8;    // 8-column tiles of S
   constexpr int NT_O = D / 8;     // 8-column tiles of O
@@ -147,11 +70,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * k_sb + h * k_sh;
 
-  // _tile_bounds: every KV tile when fully attending, tiles up to the
-  // diagonal for the causal triangle, none otherwise
-  const int n_kv = Tk / BK;
-  const int tri_hi = (qi * BQ + BQ + BK - 1) / BK;
-  const int hi = keep_full ? n_kv : (keep_tri ? min(tri_hi, n_kv) : 0);
+  const int hi = kv_tile_end(qi, Tk / BK, keep_full, keep_tri);
 
   load_rows<D>(sQ, qb, q_st, BQ, tid);
   if (hi > 0) {
@@ -297,14 +216,9 @@ static int launch(const void* q, const void* k, const void* v, void* out,
                   void* lse, int B, int H, int Tq, int Tk, int layout_bthd,
                   int keep_full, int keep_tri, float sm_scale,
                   cudaStream_t stream) {
-  // element strides of [B, T, H, D] ('bthd') or [B, H, T, D] ('bhtd');
   // out shares q's layout
-  const long long q_sb = (long long)H * Tq * D, k_sb = (long long)H * Tk * D;
-  const long long q_sh = layout_bthd ? D : (long long)Tq * D;
-  const long long k_sh = layout_bthd ? D : (long long)Tk * D;
-  const long long q_st = layout_bthd ? (long long)H * D : D;
-  const long long k_st = layout_bthd ? (long long)H * D : D;
-  const size_t smem = Tile<D>::smem;
+  const Strides qs(H, Tq, D, layout_bthd), ks(H, Tk, D, layout_bthd);
+  const size_t smem = fwd_smem<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -313,8 +227,8 @@ static int launch(const void* q, const void* k, const void* v, void* out,
   flash_fwd_kernel<D, T><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), H, Tq, Tk, q_sb, q_sh, q_st, k_sb, k_sh,
-      k_st, keep_full, keep_tri, sm_scale);
+      static_cast<float*>(lse), H, Tq, Tk, qs.sb, qs.sh, qs.st, ks.sb, ks.sh,
+      ks.st, keep_full, keep_tri, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -323,22 +237,9 @@ static int launch_d(const void* q, const void* k, const void* v, void* out,
                     void* lse, int B, int H, int Tq, int Tk, int D,
                     int layout_bthd, int keep_full, int keep_tri,
                     float sm_scale, cudaStream_t s) {
-#define FLASH_D(DD)                                                        \
-  case DD:                                                                 \
-    return launch<DD, T>(q, k, v, out, lse, B, H, Tq, Tk, layout_bthd,     \
-                         keep_full, keep_tri, sm_scale, s);
-  switch (D) {
-    FLASH_D(16)
-    FLASH_D(32)
-    FLASH_D(48)
-    FLASH_D(64)
-    FLASH_D(80)
-    FLASH_D(96)
-    FLASH_D(112)
-    FLASH_D(128)
-  }
-#undef FLASH_D
-  return (int)cudaErrorInvalidValue;
+  FLASH_DISPATCH_D(D, launch<DD, T>(q, k, v, out, lse, B, H, Tq, Tk,
+                                    layout_bthd, keep_full, keep_tri,
+                                    sm_scale, s))
 }
 
 // q [B,Tq,H,D] or [B,H,Tq,D], k/v the same with Tk, all contiguous, 16-byte
@@ -348,9 +249,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int H, int Tq, int Tk,
                          int D, int layout_bthd, int in_bf16, int keep_full,
                          int keep_tri, float sm_scale, void* stream) {
-  if (D % 16 || D > 128 || Tq % BQ || Tk % BK || B < 1 || H < 1 ||
-      Tq < BQ || Tk < BK)
-    return (int)cudaErrorInvalidValue;
+  if (!flash_shape_ok(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16)
     return launch_d<bf16>(q, k, v, out, lse, B, H, Tq, Tk, D, layout_bthd,

@@ -1,5 +1,5 @@
 """Flagship causal-LM transformer: the port of ompi_tpu/models/transformer.py,
-forward only, on one card.
+forward and training step, on one card (dp = sp = tp = 1).
 
 Parameters keep the JAX package's layout (no transposes), so
 ``params_from_jax`` is a dtype/device copy of the JAX ``init_params`` tree:
@@ -10,22 +10,25 @@ Parameters keep the JAX package's layout (no transposes), so
 
 Numerics follow the JAX forward: bias-free layer norm with eps 1e-6; bf16
 products with f32 accumulation; bf16 q/k/v, bf16 attention output and bf16
-ReLU; f32 residual stream; tied-embedding f32 logits.
+ReLU; f32 residual stream; tied-embedding f32 logits. Training follows
+``make_train_step``: the chunked softmax cross-entropy over the tied
+embedding, its mean over the tokens, and plain SGD.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ompi_tpu_torch.device import DeviceLike, resolve_device
 from ompi_tpu_torch.ops.mxu import contract_f32, einsum_bf16
 from ompi_tpu_torch.ops.ring_attention import ring_attention
-from ompi_tpu_torch.ops.softmax_xent import logits_matmul
+from ompi_tpu_torch.ops.softmax_xent import logits_matmul, softmax_xent_sum
 from ompi_tpu_torch.parallel import axes
 
 
@@ -37,6 +40,11 @@ class Config:
     n_layers: int = 2
     d_ff: int = 512
     seq_len: int = 128
+    lr: float = 1e-2
+    # recompute each block's activations in the backward
+    # (torch.utils.checkpoint, the JAX jax.checkpoint): more flops for
+    # O(layers) less device memory
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -79,11 +87,17 @@ def params_from_jax(tree, device: DeviceLike = None):
     """The JAX ``init_params`` tree (leaves as numpy arrays) as f32 tensors
     on ``device``, same structure and layout."""
     dev = resolve_device(device)
+    return _map(tree, lambda x: torch.from_numpy(
+        np.array(x, dtype=np.float32)).to(dev))
+
+
+def _map(tree, fn):
+    """``fn`` applied to every leaf of a tree of dicts and lists."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, dev) for k, v in tree.items()}
+        return {k: _map(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [params_from_jax(v, dev) for v in tree]
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(dev)
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
 
 
 def _ln(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -105,14 +119,15 @@ def features_local(params, tokens: torch.Tensor, cfg: Config,
     attention is ring attention over the 'sp' axis in the kernel's 'bhtd'
     layout, and the row-parallel outputs pass through the 'tp' allreduce
     (identities at size 1). ``use_flash`` is ``ring_attention``'s: None lets
-    it pick the Hopper kernel on the card; False forces the plain path.
+    it pick the Hopper kernels on the card; False forces the plain path.
+    With ``cfg.remat`` each block is recomputed in the backward.
     """
     T = tokens.shape[1]
     hd = cfg.head_dim
     pos_idx = axes.rank("sp") * T + torch.arange(T, device=tokens.device)
     x = params["embed"][tokens.long()] + params["pos"][pos_idx][None]
 
-    for blk in params["blocks"]:
+    def block(x, blk):
         h = _ln(x, blk["ln1"])
         hb = h.to(torch.bfloat16)
         wb = blk["qkv"].to(torch.bfloat16)  # [D, H, 3*hd]
@@ -127,7 +142,13 @@ def features_local(params, tokens: torch.Tensor, cfg: Config,
         h2 = _ln(x, blk["ln2"])
         ff1 = torch.clamp_min(
             einsum_bf16("btd,df->btf", h2.to(torch.bfloat16), blk["w1"]), 0)
-        x = x + axes.allreduce(_mm(ff1, blk["w2"]), "tp")
+        return x + axes.allreduce(_mm(ff1, blk["w2"]), "tp")
+
+    for blk in params["blocks"]:
+        if cfg.remat:
+            x = checkpoint(block, x, blk, use_reentrant=False)
+        else:
+            x = block(x, blk)
 
     return _ln(x, params["ln_f"])
 
@@ -144,3 +165,88 @@ def forward(params, tokens: torch.Tensor, cfg: Config,
     """
     x = features_local(params, tokens, cfg, use_flash=use_flash)
     return logits_matmul(x, params["embed"])
+
+
+def _loss_local(params, tokens: torch.Tensor, targets: torch.Tensor,
+                cfg: Config, denom: float,
+                use_flash: Optional[bool] = None) -> torch.Tensor:
+    """The mean next-token loss of one shard: the chunked softmax
+    cross-entropy over the tied embedding (chunks of 128 positions), over
+    ``denom`` tokens.
+
+    psum_axes is empty: the step allreduces every gradient itself, embed's
+    included, so the loss must not sum embed's cotangent a second time.
+    """
+    x = features_local(params, tokens, cfg, use_flash=use_flash)
+    return softmax_xent_sum(x, params["embed"], targets, 128) / denom
+
+
+def param_leaves(params) -> List[torch.Tensor]:
+    """The parameter tensors in the order of ``jax.tree.leaves`` (dict keys
+    sorted, lists in order)."""
+    if isinstance(params, dict):
+        return [t for key in sorted(params) for t in param_leaves(params[key])]
+    if isinstance(params, (list, tuple)):
+        return [t for item in params for t in param_leaves(item)]
+    return [params]
+
+
+def loss_and_grads(params, tokens: torch.Tensor, targets: torch.Tensor,
+                   cfg: Config, use_flash: Optional[bool] = None
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(mean loss, the gradient of every parameter in ``param_leaves`` order)
+    of one batch on one shard; the parameters are left as they were."""
+    B, T = tokens.shape
+    leaves = param_leaves(params)
+    wanted = [p.requires_grad for p in leaves]
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = _loss_local(params, tokens, targets, cfg, float(B * T),
+                           use_flash)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p, w in zip(leaves, wanted):
+            p.requires_grad_(w)
+    return loss.detach(), list(grads)
+
+
+def make_train_step(cfg: Config, device: DeviceLike = None, dp: int = 1,
+                    sp: int = 1, tp: int = 1) -> Tuple[Callable, Callable]:
+    """The full training step at dp = sp = tp = 1: forward, backward and SGD
+    update. Returns ``(step, place)`` as the JAX ``make_train_step`` does.
+
+    ``place(params, tokens, targets)`` moves all three to ``device`` (the
+    card unless the caller asks for the CPU). ``step(params, tokens,
+    targets)`` returns ``(loss, params)``: the mean loss over the batch's
+    tokens, and the same parameter tensors after ``p -= lr * g``, which is
+    applied IN PLACE under ``torch.no_grad()`` (JAX returns new arrays; the
+    port saves a copy of every parameter). Attention takes the Hopper
+    kernels on the card and the chunked plain path on the CPU.
+
+    Gradient reduction, written down for the multi-rank slice: params are
+    replicated over dp and sp, so each gradient must be summed over those
+    axes exactly once. The JAX step gets that sum from shard_map's AD, and
+    its loss psums embed's cotangent itself. Here the step allreduces every
+    gradient over ("dp", "sp") below, and ``_loss_local`` passes no
+    ``psum_axes`` to the loss, so embed is not counted twice.
+    """
+    if (dp, sp, tp) != (1, 1, 1):
+        raise NotImplementedError(
+            "the training step over dp, sp or tp > 1 arrives with the "
+            "multi-rank slice of the port (ROADMAP.md, queue A)")
+    dev = resolve_device(device)
+
+    def place(params, tokens, targets):
+        move = lambda t: t.to(dev)
+        return (_map(params, move), move(torch.as_tensor(tokens)),
+                move(torch.as_tensor(targets)))
+
+    def step(params, tokens, targets):
+        loss, grads = loss_and_grads(params, tokens, targets, cfg)
+        with torch.no_grad():
+            for p, g in zip(param_leaves(params), grads):
+                p.sub_(cfg.lr * axes.allreduce(g, ("dp", "sp")))
+        return axes.allreduce(loss, ("dp", "sp")), params
+
+    return step, place
