@@ -10,11 +10,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from ``ompi_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch version on the card, at the shapes
-   the model gives it, with times for the kernel, the plain version, the
-   PyTorch library call for the same function, and the card's bound:
-   ``flash_fwd``, then ``flash_dq`` and ``flash_dkv`` with a random output
-   cotangent and a non-zero lse cotangent;
+3. each kernel against its plain PyTorch version on the card: first the
+   smallest shapes, (1, 1, 64 or 128, D) for every head dim, then the
+   shapes the model gives it, with times for the kernel, the plain
+   version, the PyTorch library call for the same function, the card's
+   bound, the achieved TF/s and the share of the bound: ``flash_fwd``,
+   then ``flash_dq`` and ``flash_dkv`` with a random output cotangent and
+   a non-zero lse cotangent;
 4. the main paths, at the flagship width (vocab 32768, d_model 1024,
    8 heads, 8 layers, d_ff 4096, seq 1024, batch 8, random weights and
    tokens from a seed), each with the kernel launch counts set to 0 just
@@ -94,6 +96,19 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time of one call of ``fn`` by the host clock, with the device
+    running behind it: for a kernel's wrapper, its checks, allocations,
+    tensor maps and launch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / iters
+
+
 def qkv(shape, seed, dtype):
     rng = np.random.RandomState(seed)
     return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
@@ -126,13 +141,26 @@ def check_flash(fa, shape, layout, dtype, seed):
     return max(errs)
 
 
+# flops per visible (q, k) pair, in units of the head dim: the forward's
+# two products (S, P.V); flash_dq's three (S, dP, dS.K); flash_dkv's four
+# (S^T, dP^T, P^T.dO, dS^T.Q)
+FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
+# the hand-written kernel's design, as each entry of the kernels line says
+DESIGN = {"flash_fwd": "wgmma+tma", "flash_dq": "mma.sync",
+          "flash_dkv": "wgmma+tma"}
+
+
+def kernel_flops(name, B, H, T, D):
+    """Flops of kernel ``name`` on the causal block: its products over the
+    B*H*T*(T+1)/2 visible pairs."""
+    return FLOPS_PER_PAIR[name] * D * B * H * T * (T + 1) / 2
+
+
 def flash_bound_ms(B, H, T, D, in_bytes):
     """Least time for the causal block: q/k/v read once, f32 out and lse
     written once; flops of the two products over the visible pairs."""
-    pairs = B * H * T * (T + 1) / 2
-    flops = 4.0 * D * pairs
     nbytes = 3 * B * H * T * D * in_bytes + B * H * T * (D + 1) * 4
-    return _bound(flops, nbytes)
+    return _bound(kernel_flops("flash_fwd", B, H, T, D), nbytes)
 
 
 def _bound(flops, nbytes):
@@ -146,11 +174,16 @@ def flash_bwd_bounds_ms(B, H, T, D, in_bytes):
     (``in_bytes`` each) and dO (bf16) read once, lse and delta read once,
     the f32 gradients written once; 6*D flops per visible pair for dq
     (S, dP, dS.K), 8*D for dk/dv (S, dP, P^T.dO, dS^T.Q)."""
-    pairs = B * H * T * (T + 1) / 2
     reads = B * H * T * (3 * D * in_bytes + 2 * D + 2 * 4)
     grad = B * H * T * D * 4
-    return (_bound(6.0 * D * pairs, reads + grad),
-            _bound(8.0 * D * pairs, reads + 2 * grad))
+    return (_bound(kernel_flops("flash_dq", B, H, T, D), reads + grad),
+            _bound(kernel_flops("flash_dkv", B, H, T, D), reads + 2 * grad))
+
+
+def rates(name, B, H, T, D, ms, bound_ms):
+    """Achieved TF/s of kernel ``name`` at ``ms`` on the causal block, and
+    its share of the bound (bound_ms / ms)."""
+    return kernel_flops(name, B, H, T, D) / (ms * 1e-3) / 1e12, bound_ms / ms
 
 
 def bwd_inputs(fa, shape, layout, dtype, seed, kf, kt):
@@ -201,6 +234,41 @@ def check_flash_bwd(fa, shape, layout, dtype, seed):
     return err_dq, err_dkv
 
 
+def check_smallest(fa):
+    """The smallest shapes first: (1, 1, T, D) for T in 64 and 128 and every
+    head dim the gate admits, the full relation, bf16, the forward and both
+    backward kernels against their plain versions. A wrong shared-memory
+    descriptor gives wrong numbers and no error, so every case is printed
+    before the check fails."""
+    bad = []
+    for T in (64, 128):
+        for D in range(16, 129, 16):
+            shape = (1, 1, T, D)
+            q, k, v = qkv(shape, D, torch.bfloat16)
+            o_k, l_k = fa.flash_block(q, k, v, True, False, layout="bhtd")
+            o_p, l_p = fa.flash_block_reference(q, k, v, True, False,
+                                                layout="bhtd")
+            args = bwd_inputs(fa, shape, "bhtd", torch.bfloat16, D, True,
+                              False)
+            got = fa.flash_block_bwd(*args, True, False, layout="bhtd")
+            ref = fa.flash_block_bwd_reference(*args, True, False,
+                                               layout="bhtd")
+            torch.cuda.synchronize()
+            e_out = float((o_k - o_p).abs().max())
+            e_lse = float((l_k - l_p).abs().max())
+            rel = [float((g - r).abs().max()) / float(r.abs().max())
+                   for g, r in zip(got, ref)]
+            ok = (e_out <= OUT_TOL and e_lse <= LSE_TOL
+                  and max(rel) <= GRAD_TOL)
+            print(f"smallest {shape} full: max|out err| {e_out:.3e} "
+                  f"max|lse err| {e_lse:.3e}, max err / max|grad| dq "
+                  f"{rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e}"
+                  f"{'' if ok else '  FAILED'}", flush=True)
+            if not ok:
+                bad.append(shape)
+    require(not bad, f"smallest shapes against the plain versions: {bad}")
+
+
 def profile(name, fn, runs, card) -> None:
     """Each kernel's device time per run over ``runs`` calls of ``fn``, and
     the device's busy share of the wall time, from torch.profiler."""
@@ -241,6 +309,7 @@ def phase_kernels(fa, card):
     B, H, T, D = BATCH, FLAGSHIP["n_heads"], FLAGSHIP["seq_len"], \
         FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
     res = {}
+    check_smallest(fa)
     err = check_flash(fa, (B, H, T, D), "bhtd", torch.bfloat16, 0)
     check_flash(fa, (B, H, T, D), "bhtd", torch.float32, 1)
     check_flash(fa, (4, 256, 8, 32), "bthd", torch.bfloat16, 2)
@@ -249,18 +318,26 @@ def phase_kernels(fa, card):
     # each kernel is timed through the wrapper that launches it
     sm = 1.0 / D ** 0.5
     q, k, v = qkv((B, H, T, D), 3, torch.bfloat16)
-    ms = time_ms(lambda: fa.flash_fwd(q, k, v, False, True, sm, "bhtd"))
+
+    def fwd():
+        return fa.flash_fwd(q, k, v, False, True, sm, "bhtd")
+
+    ms, host = time_ms(fwd), host_ms(fwd)
     plain_ms = time_ms(lambda: fa.flash_block_reference(
         q, k, v, False, True, layout="bhtd"))
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True))
     bound_ms, bound_by = flash_bound_ms(B, H, T, D, 2)
-    print(f"flash_fwd causal {(B, H, T, D)} bf16: kernel {ms:.4f} ms, plain "
+    tfs, share = rates("flash_fwd", B, H, T, D, ms, bound_ms)
+    print(f"flash_fwd causal {(B, H, T, D)} bf16: kernel {ms:.4f} ms "
+          f"({tfs:.1f} TF/s, bound_share {share:.3f}; its wrapper's host "
+          f"time {1e3 * host:.1f} us a call), plain "
           f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}) on {card}", flush=True)
     res["flash_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms)
+                            library_ms=library_ms, tflops=tfs,
+                            bound_share=share, host_ms=host)
     del q, k, v
 
     e_dq, e_dkv = check_flash_bwd(fa, (B, H, T, D), "bhtd", torch.bfloat16, 0)
@@ -273,8 +350,15 @@ def phase_kernels(fa, card):
     q, k, v, dout, lse, delta = bwd_inputs(fa, (B, H, T, D), "bhtd",
                                            torch.bfloat16, 3, False, True)
     args = (q, k, v, dout, lse, delta, False, True, sm, "bhtd")
-    dq_ms = time_ms(lambda: fa.flash_dq(*args))
-    dkv_ms = time_ms(lambda: fa.flash_dkv(*args))
+
+    def dq():
+        return fa.flash_dq(*args)
+
+    def dkv():
+        return fa.flash_dkv(*args)
+
+    dq_ms, dq_host = time_ms(dq), host_ms(dq)
+    dkv_ms, dkv_host = time_ms(dkv), host_ms(dkv)
     plain_bwd_ms = time_ms(lambda: fa.flash_block_bwd_reference(*args))
     # the library's flash backward: one autograd.grad call through the
     # retained graph of scaled_dot_product_attention (dq, dk and dv in one)
@@ -285,18 +369,27 @@ def phase_kernels(fa, card):
         o, (ql, kl, vl), dout, retain_graph=True))
     (dq_bound, dq_by), (dkv_bound, dkv_by) = flash_bwd_bounds_ms(
         B, H, T, D, 2)
-    print(f"flash_dq causal {(B, H, T, D)} bf16: kernel {dq_ms:.4f} ms, "
-          f"bound {dq_bound:.4f} ms ({dq_by}); flash_dkv: kernel "
-          f"{dkv_ms:.4f} ms, bound {dkv_bound:.4f} ms ({dkv_by}); plain "
+    dq_tfs, dq_share = rates("flash_dq", B, H, T, D, dq_ms, dq_bound)
+    dkv_tfs, dkv_share = rates("flash_dkv", B, H, T, D, dkv_ms, dkv_bound)
+    print(f"flash_dq causal {(B, H, T, D)} bf16: kernel {dq_ms:.4f} ms "
+          f"({dq_tfs:.1f} TF/s, bound_share {dq_share:.3f}; host "
+          f"{1e3 * dq_host:.1f} us a call), bound {dq_bound:.4f} ms "
+          f"({dq_by}); flash_dkv: kernel {dkv_ms:.4f} ms "
+          f"({dkv_tfs:.1f} TF/s, bound_share {dkv_share:.3f}; host "
+          f"{1e3 * dkv_host:.1f} us a call), bound "
+          f"{dkv_bound:.4f} ms ({dkv_by}); plain "
           f"backward (dq, dk, dv) {plain_bwd_ms:.4f} ms; library backward "
           f"(torch.autograd.grad of scaled_dot_product_attention, dq, dk "
           f"and dv) {lib_bwd_ms:.4f} ms on {card}", flush=True)
     res["flash_dq"] = dict(max_abs_err=e_dq, ms=dq_ms, plain_ms=plain_bwd_ms,
                            bound_ms=dq_bound, bound_by=dq_by,
-                           library_ms=lib_bwd_ms)
+                           library_ms=lib_bwd_ms, tflops=dq_tfs,
+                           bound_share=dq_share, host_ms=dq_host)
     res["flash_dkv"] = dict(max_abs_err=e_dkv, ms=dkv_ms,
                             plain_ms=plain_bwd_ms, bound_ms=dkv_bound,
-                            bound_by=dkv_by, library_ms=lib_bwd_ms)
+                            bound_by=dkv_by, library_ms=lib_bwd_ms,
+                            tflops=dkv_tfs, bound_share=dkv_share,
+                            host_ms=dkv_host)
     return res
 
 
@@ -508,7 +601,7 @@ def main() -> int:
     for name, (src, line) in sources.items():
         n = serve_counts[name] if name == "flash_fwd" else train_counts[name]
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "design": DESIGN[name],
             "source": f"ompi_tpu_torch/csrc/{src}",
             "replaces": f"ompi_tpu/ops/flash_attention.py:{line}",
             "launches": n, **res[name]})

@@ -23,41 +23,48 @@
 // probabilities, dS) in registers and stream the other side's tiles
 // through shared memory once per tile they own.
 //
-// Design: one block of 4 warps per (b*h, 64-row tile); each warp owns 16
-// rows of the tile it accumulates into, so neither kernel needs atomics
-// and a run's result does not depend on scheduling.
-// - flash_dq owns a Q tile: Q, dO, lse and delta of its rows stay in
-//   registers; K/V tiles of 64 rows stream through shared memory,
-//   double-buffered with cp.async. For each 16 KV columns it forms S = Q.K^T
-//   and dP = dO.V^T (mma.sync m16n8k16, bf16 in, f32 accumulation), turns
-//   them into dS, rounds dS to bf16 and feeds its C fragments straight in
-//   as the A fragment of dq += dS.K.
-// - flash_dkv owns a KV tile: K and V stay in shared memory and their A
-//   fragments are reloaded at each use (with the dk and dv accumulators at
-//   D=128 taking 128 registers a thread, holding them too would spill). Q
-//   and dO tiles stream through shared memory with their lse and delta
-//   (per column here, so staged beside them). It forms the transposed
-//   tiles S^T = K.Q^T and dP^T = V.dO^T, 16 Q columns at a time, and feeds
-//   P^T and dS^T (bf16) into dv += P^T.dO and dk += dS^T.Q. The causal
-//   mask is transposed: key row r is kept for query column c when r <= c.
-// As on the TPU, P and dS are rounded to bf16 before their products and
-// f32 inputs are rounded to bf16 as they are staged. The heaviest causal
-// tiles are scheduled first. No TMA, no wgmma and no warp specialisation
-// yet: those are the next steps for speed.
+// Design. Each block owns one tile of the gradient it writes, so neither
+// kernel needs atomics and a run's result does not depend on scheduling.
+// - flash_dq (mma.sync m16n8k16): one block of 4 warps per (b*h, 64-row Q
+//   tile); each warp owns 16 rows. Q, dO, lse and delta of its rows stay
+//   in registers; K/V tiles of 64 rows stream through shared memory,
+//   double-buffered with cp.async. For each 16 KV columns it forms
+//   S = Q.K^T and dP = dO.V^T (bf16 in, f32 accumulation), turns them into
+//   dS, rounds dS to bf16 and feeds its C fragments straight in as the A
+//   fragment of dq += dS.K. f32 inputs are rounded to bf16 as they are
+//   staged.
+// - flash_dkv (wgmma, TMA, mbarriers; hopper.cuh): a persistent block per
+//   SM walks over work tiles (b*h, 128-row KV tile), the lowest KV tiles
+//   (which see the most Q tiles) first. A block is a producer warpgroup
+//   (setmaxnreg down to 24 registers), one thread of which loads K and V
+//   of each work tile by TMA, and its 64-row Q and dO tiles, with their lse
+//   and delta (per column here) by bulk copy beside them, through a ring
+//   of three stages with "full" and "empty" mbarriers; and two consumer
+//   warpgroups of 64 key rows each (setmaxnreg up to 240), whose dK and dV
+//   accumulators stay in registers. Per Q tile, in two halves of 32
+//   columns (so only one half's scores live beside them): the transposed
+//   tiles S^T = K.Q^T and dP^T = V.dO^T by wgmma m64n32k16 with both
+//   operands in shared memory (K-major), P^T and dS^T in bf16 registers as
+//   the A operand of dV += P^T.dO and dK += dS^T.Q (wgmma m64n{64,128}k16,
+//   dO and Q from shared memory through the transpose bit). Each half's
+//   scores are issued before the gradient products of the half before it,
+//   across Q tiles too, so P^T and dS^T are formed while the tensor cores
+//   run those. The causal mask is transposed (key row r is kept for query
+//   column c when r <= c) and applied only on tiles that cross the
+//   diagonal. dK and dV go out straight from registers, while the
+//   producer already loads the next work tile. Its f32 inputs are rounded
+//   to bf16 by the wrapper (TMA cannot convert).
+// As on the TPU, P and dS are rounded to bf16 before their products.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
+
+using namespace hopper;
 
 // shared memory of a block: Q and dO tiles and two (K, V) tile pairs
 template <int D>
 static constexpr size_t dq_smem() {
   return (size_t)(2 * BQ + 4 * BK) * Row<D>::bytes;
-}
-
-// shared memory of a block: K and V tiles, two (Q, dO) tile pairs and two
-// (lse, delta) column pairs
-template <int D>
-static constexpr size_t dkv_smem() {
-  return (size_t)(2 * BK + 4 * BQ) * Row<D>::bytes + 4 * BQ * sizeof(float);
 }
 
 template <int D, typename T>
@@ -192,166 +199,300 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// BQ lse values (scaled to the log2 domain) and BQ delta values of Q tile i
-static __device__ __forceinline__ void load_cols(float* sL, float* sDl,
-                                                 const float* lrow,
-                                                 const float* drow, int i,
-                                                 int tid) {
-  if (tid < BQ) {
-    sL[tid] = lrow[i * BQ + tid] * LOG2E;
-    sDl[tid] = drow[i * BQ + tid];
-  }
-}
+namespace dkv {
 
-template <int D, typename T>
-__global__ void __launch_bounds__(NTHREADS)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const bf16* __restrict__ dout,
+constexpr int KBK = 128;        // key rows of a work tile, 64 per consumer
+constexpr int KBQ = 64;         // Q/dO rows of a streamed tile
+constexpr int NSTAGE = 3;       // Q/dO ring depth
+constexpr int CONSUMERS = 256;  // two consumer warpgroups
+constexpr int THREADS = 384;    // and the producer warpgroup
+
+template <int D>
+struct Dkv {
+  static constexpr int NC = (D + 63) / 64;  // 64-column chunks
+  static constexpr int CK = KBK * 128;      // bytes of a K/V chunk
+  static constexpr int CQ = KBQ * 128;      // bytes of a Q/dO chunk
+  // a stage: Q, dO, then KBQ lse and KBQ delta values in a 1024-byte slot
+  static constexpr int STAGE = 2 * NC * CQ + 1024;
+  static constexpr int TX = 2 * NC * CQ + 2 * KBQ * (int)sizeof(float);
+  static constexpr int BARS = 2 * NC * CK + NSTAGE * STAGE;
+  // K/V's full and empty barriers, then each stage's
+  static constexpr size_t smem = BARS + 8 * (2 + 2 * NSTAGE) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv,
+                 const __grid_constant__ CUtensorMap mdo,
+                 float* __restrict__ dk, float* __restrict__ dv,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dk,
-                 float* __restrict__ dv, int H, int Tq, int Tk,
-                 long long q_sb, long long q_sh, long long q_st,
-                 long long k_sb, long long k_sh, long long k_st,
-                 int keep_full, int keep_tri, float sm_scale) {
-  constexpr int DP = Row<D>::DP;
-  constexpr int KSTEPS = D / 16;  // depth steps of K.Q^T and V.dO^T
-  constexpr int NT_O = D / 8;     // 8-column tiles of dk and dv
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // [BK][DP]
-  bf16* sV = sK + BK * DP;                   // [BK][DP]
-  bf16* sQD = sV + BK * DP;  // 2 x (Q [BQ][DP], dO [BQ][DP])
-  float* sLD = reinterpret_cast<float*>(sQD + 4 * BQ * DP);  // 2 x (lse, delta)
+                 const float* __restrict__ delta, int BH, int H, int Tq,
+                 int Tk, int bthd, int keep_full, int keep_tri,
+                 float sm_scale) {
+  using L = Dkv<D>;
+  constexpr int NC = L::NC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);
+  uint8_t* sV = sK + NC * L::CK;
+  uint8_t* sQD = sV + NC * L::CK;
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sK + L::BARS);
+  uint64_t* kvempty = kvfull + 1;
+  uint64_t* full = kvempty + 1;
+  uint64_t* empty = full + NSTAGE;
 
-  const int ki = blockIdx.x;  // the lowest KV tiles see the most Q tiles
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
+  const int n_q = Tq / KBQ;
+  const int n_k = (Tk + KBK - 1) / KBK;
+  // the lowest KV tiles, which see the most Q tiles, first: work tile w is
+  // KV tile w / BH of (b*h) w % BH
+  const Tiles tiles{BH * n_k};
+  // `lo_tri` of the TPU kernel: Q tiles wholly above the diagonal give KV
+  // tile ki nothing; the "none" block visits no Q tile
+  auto q_lo = [&](int ki) {
+    return keep_full ? 0 : (keep_tri ? min((ki * KBK) / KBQ, n_q) : n_q);
+  };
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+
+  // a consumer warp's lane 0 arrives once it is done with a stage or K/V
+  if (tid == 0) {
+    mbar_init(kvfull, 1);
+    mbar_init(kvempty, CONSUMERS / 32);
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer; its path never joins the others'
+    setmaxnreg_dec<24>();
+    if (tid != CONSUMERS) return;
+    int it = 0, n = 0;  // Q/dO tiles and K/V tiles loaded so far
+    for (int r = tiles.next(-1); r >= 0; r = tiles.next(r)) {
+      const int w = tiles.at(r);
+      const int ki = w / BH, bh = w % BH;
+      const int b = bh / H, h = bh - b * H;
+      const float* lrow = lse + (long long)bh * Tq;
+      const float* drow = delta + (long long)bh * Tq;
+      const int lo = q_lo(ki);
+      for (int i = lo; i < n_q; ++i, ++it) {
+        // Q and dO of tile i into its stage, with its lse and delta
+        const int s = it % NSTAGE;
+        uint8_t* sQ = sQD + s * L::STAGE;
+        float* sL = reinterpret_cast<float*>(sQ + 2 * NC * L::CQ);
+        mbar_wait(empty + s, ((it / NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(full + s, L::TX);
+        for (int c = 0; c < NC; ++c) {
+          tma_tile(sQ + c * L::CQ, &mq, full + s, bthd, c * 64, i * KBQ, h,
+                   b);
+          tma_tile(sQ + (NC + c) * L::CQ, &mdo, full + s, bthd, c * 64,
+                   i * KBQ, h, b);
+        }
+        bulk_load(sL, lrow + i * KBQ, KBQ * sizeof(float), full + s);
+        bulk_load(sL + KBQ, drow + i * KBQ, KBQ * sizeof(float), full + s);
+        if (i == lo) {  // K and V, once the consumers' last scores are done
+          mbar_wait(kvempty, (n & 1) ^ 1);
+          mbar_expect_tx(kvfull, 2 * NC * L::CK);
+          for (int c = 0; c < NC; ++c) {
+            tma_tile(sK + c * L::CK, &mk, kvfull, bthd, c * 64, ki * KBK, h,
+                     b);
+            tma_tile(sV + c * L::CK, &mv, kvfull, bthd, c * 64, ki * KBK, h,
+                     b);
+          }
+          ++n;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int cw = tid >> 7;  // consumer warpgroup: key rows cw*64 ..
+  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-
-  const long long k_off = b * k_sb + h * k_sh + (long long)ki * BK * k_st;
-  const long long q_off = b * q_sb + h * q_sh;
-  const float* lrow = lse + (long long)bh * Tq;
-  const float* drow = delta + (long long)bh * Tq;
-
-  // `lo_tri` of the TPU kernel: Q tiles wholly above the diagonal give
-  // this KV tile nothing; the "none" block visits no Q tile
-  const int n_q = Tq / BQ;
-  const int lo = keep_full ? 0 : (keep_tri ? (ki * BK) / BQ : n_q);
-
-  load_rows<D>(sK, k + k_off, k_st, BK, tid);
-  load_rows<D>(sV, v + k_off, k_st, BK, tid);
-  if (lo < n_q) {
-    const long long off = q_off + (long long)lo * BQ * q_st;
-    load_rows<D>(sQD, q + off, q_st, BQ, tid);
-    load_rows<D>(sQD + BQ * DP, dout + off, q_st, BQ, tid);
-    load_cols(sLD, sLD + BQ, lrow, drow, lo, tid);
-  }
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  float dka[NT_O][4], dva[NT_O][4];
-#pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt) {
-    dka[nt][0] = dka[nt][1] = dka[nt][2] = dka[nt][3] = 0.0f;
-    dva[nt][0] = dva[nt][1] = dva[nt][2] = dva[nt][3] = 0.0f;
-  }
   const float scale2 = sm_scale * LOG2E;
-  const int row0 = ki * BK + warp * 16 + g;  // key rows g and g+8
+  const uint8_t* ka = sK + cw * 64 * 128;  // this consumer's 64 key rows
+  const uint8_t* va = sV + cw * 64 * 128;
+  // this warp is done with a stage of the ring (its lse and delta were
+  // read by plain loads, before TMA overwrites them), or with K and V
+  auto release = [&](uint64_t* bar) {
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
 
-  for (int i = lo; i < n_q; ++i) {
-    const int buf = (i - lo) & 1;
-    const bf16* sQ = sQD + buf * 2 * BQ * DP;
-    const bf16* sdO = sQ + BQ * DP;
-    const float* sL = sLD + buf * 2 * BQ;
-    const float* sDl = sL + BQ;
-    if (i + 1 < n_q) {
-      bf16* nQ = sQD + (buf ^ 1) * 2 * BQ * DP;
-      float* nL = sLD + (buf ^ 1) * 2 * BQ;
-      const long long off = q_off + (long long)(i + 1) * BQ * q_st;
-      load_rows<D>(nQ, q + off, q_st, BQ, tid);
-      load_rows<D>(nQ + BQ * DP, dout + off, q_st, BQ, tid);
-      load_cols(nL, nL + BQ, lrow, drow, i + 1, tid);
-    }
-    cp_async_commit();
+  int it = 0, n = 0;  // as the producer counts them
+  for (int r = tiles.next(-1); r >= 0; r = tiles.next(r)) {
+    const int w = tiles.at(r);
+    const int ki = w / BH, bh = w % BH;
+    const int b = bh / H, h = bh - b * H;
+    const int lo = q_lo(ki);
+    const int row0 = ki * KBK + cw * 64 + warp * 16 + g;  // and row0 + 8
+    const int wg_last = ki * KBK + cw * 64 + 63;  // last key row of consumer
 
+    // 8-column block j of dK and dV is dka/dva[4j .. 4j+3]
+    float dka[NC * 32], dva[NC * 32];
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      // S^T and dP^T over Q columns kk*16 .. kk*16+15: two 8-column tiles
-      float s[2][4], dp[2][4];
+    for (int i = 0; i < NC * 32; ++i) dka[i] = dva[i] = 0.0f;
+
+    // descriptors of this consumer's K and V rows, K-major for the scores
+    const uint64_t dK = opaque(desc_sw128(ka, 16));
+    const uint64_t dV = opaque(desc_sw128(va, 16));
+    float st[16], dpt[16];  // S^T and dP^T of one half of a Q tile
+    // P^T and dS^T of the first and the second half, bf16
+    uint32_t pf0[2][4], dsf0[2][4], pf1[2][4], dsf1[2][4];
+
+    // The Q tile goes in two halves of 32 columns, so the scores of only
+    // one half live beside the dK and dV accumulators. Per half: S^T =
+    // K.Q^T and dP^T = V.dO^T (64 key rows x 32 Q columns; the first
+    // product of each overwrites it), with Q and dO K-major; then P^T and
+    // dS^T in bf16, whose accumulator blocks 2kk and 2kk+1 are the A
+    // operand of depth step kk of dV += P^T.dO and dK += dS^T.Q, with dO and
+    // Q MN-major (their rows are the depth). `k` counts the ring's tiles.
+    auto stage = [&](int k) { return sQD + (k % NSTAGE) * L::STAGE; };
+    auto issue_scores = [&](int k, int hq) {
+      const uint64_t dQ = opaque(desc_sw128(stage(k), 16));
+      const uint64_t dO = opaque(desc_sw128(stage(k) + NC * L::CQ, 16));
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.0f;
+      for (int ks = 0; ks < NC * 4; ++ks) {
+        const int ok = (ks >> 2) * L::CK + (ks & 3) * 32;
+        const int oq = (ks >> 2) * L::CQ + (ks & 3) * 32 + hq * 32 * 128;
+        wgmma_ss<32>(st, desc_at(dK, ok), desc_at(dQ, oq), ks != 0);
+        wgmma_ss<32>(dpt, desc_at(dV, ok), desc_at(dO, oq), ks != 0);
       }
+    };
+    auto issue_grads = [&](int k, int hq, const uint32_t(&pf)[2][4],
+                           const uint32_t(&dsf)[2][4]) {
+      const uint64_t dQt = opaque(desc_sw128(stage(k), L::CQ));
+      const uint64_t dOt = opaque(desc_sw128(stage(k) + NC * L::CQ, L::CQ));
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t a[4], b0, b1;
-        load_a<DP>(a, sK, warp * 16, ks * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          load_bt<DP>(b0, b1, sQ, kk * 16 + n * 8, ks * 16, g, t);
-          mma_bf16(s[n], a, b0, b1);
-        }
-        load_a<DP>(a, sV, warp * 16, ks * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          load_bt<DP>(b0, b1, sdO, kk * 16 + n * 8, ks * 16, g, t);
-          mma_bf16(dp[n], a, b0, b1);
-        }
+      for (int kk = 0; kk < 2; ++kk) {
+        const int off = (hq * 2 + kk) * 2048;
+        wgmma_rs<NC * 64>(dva, pf[kk], desc_at(dOt, off), 1);
+        wgmma_rs<NC * 64>(dka, dsf[kk], desc_at(dQt, off), 1);
       }
-      // P^T and dS^T, rounded to bf16, as A fragments of one 16-deep step
-      uint32_t pf[4], dsf[4];
+    };
+    // lse and delta are per column (Q row). The causal mask is transposed:
+    // key row r is kept for Q column c when r <= c; only Q tiles that
+    // cross the diagonal need it.
+    auto to_frags = [&](int k, int i, int hq, uint32_t(&pf)[2][4],
+                        uint32_t(&dsf)[2][4]) {
+      const float* sL =
+          reinterpret_cast<const float*>(stage(k) + 2 * NC * L::CQ);
+      const float* sDl = sL + KBQ;
+      const bool mask = !keep_full && wg_last > i * KBQ;
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
+      for (int n8 = 0; n8 < 4; ++n8) {
+        const int cl = hq * 32 + n8 * 8 + 2 * t;  // Q column in the tile
+        const float2 lv = *reinterpret_cast<const float2*>(sL + cl);
+        const float2 dl = *reinterpret_cast<const float2*>(sDl + cl);
+        const float l2[2] = {lv.x * LOG2E, lv.y * LOG2E};
+        const float dlt[2] = {dl.x, dl.y};
         float p[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int row = row0 + (e >> 1) * 8;
-          const int c = kk * 16 + n * 8 + 2 * t + (e & 1);
-          p[e] = (keep_full || row <= i * BQ + c)
-                     ? exp2f(s[n][e] * scale2 - sL[c])
-                     : 0.0f;
-          ds[e] = p[e] * (dp[n][e] - sDl[c]);
+          p[e] = exp2_approx(fmaf(st[4 * n8 + e], scale2, -l2[e & 1]));
+          if (mask && row0 + (e >> 1) * 8 > i * KBQ + cl + (e & 1))
+            p[e] = 0.0f;
+          ds[e] = p[e] * (dpt[4 * n8 + e] - dlt[e & 1]);
         }
-        pf[n * 2] = pack_bf16(p[0], p[1]);
-        pf[n * 2 + 1] = pack_bf16(p[2], p[3]);
-        dsf[n * 2] = pack_bf16(ds[0], ds[1]);
-        dsf[n * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        pf[n8 >> 1][(n8 & 1) * 2] = pack_bf16(p[0], p[1]);
+        pf[n8 >> 1][(n8 & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+        dsf[n8 >> 1][(n8 & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        dsf[n8 >> 1][(n8 & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
-#pragma unroll
-      for (int nt = 0; nt < NT_O; ++nt) {
-        uint32_t b0, b1;
-        load_b<DP>(b0, b1, sdO, kk * 16, nt * 8, g, t);
-        mma_bf16(dva[nt], pf, b0, b1);
-        load_b<DP>(b0, b1, sQ, kk * 16, nt * 8, g, t);
-        mma_bf16(dka[nt], dsf, b0, b1);
+    };
+
+    // A software pipeline over the Q tiles: each half's scores go before
+    // the gradient products of the half before it (the second half's of
+    // the previous Q tile, or the first half's of this one), so P^T and
+    // dS^T of a half are formed while those products run. A stage is
+    // released once its second half's gradient products are done.
+    auto first_half = [&](int k, int i) {  // its scores waited for
+      fence_regs(st);
+      fence_regs(dpt);
+      fence_regs(pf0);
+      fence_regs(dsf0);
+      to_frags(k, i, 0, pf0, dsf0);
+    };
+    auto second_half = [&](int k, int i) {  // scores, then P^T and dS^T
+      wgmma_fence();
+      issue_scores(k, 1);
+      wgmma_commit();
+      issue_grads(k, 0, pf0, dsf0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the scores, and the previous Q tile's products
+      fence_regs(st);
+      fence_regs(dpt);
+      fence_regs(pf1);
+      fence_regs(dsf1);
+      if (i > lo) release(empty + (k - 1) % NSTAGE);
+      if (i == n_q - 1) release(kvempty);
+      to_frags(k, i, 1, pf1, dsf1);
+    };
+    if (lo < n_q) {
+      mbar_wait(kvfull, n & 1);
+      mbar_wait(full + it % NSTAGE, (it / NSTAGE) & 1);
+      wgmma_fence();
+      issue_scores(it, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      first_half(it, lo);
+      for (int i = lo; i < n_q - 1; ++i, ++it) {
+        second_half(it, i);
+        mbar_wait(full + (it + 1) % NSTAGE, ((it + 1) / NSTAGE) & 1);
+        wgmma_fence();
+        issue_scores(it + 1, 0);
+        wgmma_commit();
+        issue_grads(it, 1, pf1, dsf1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the scores, and Q tile i's first half
+        first_half(it + 1, i + 1);
       }
+      second_half(it, n_q - 1);
+      wgmma_fence();
+      issue_grads(it, 1, pf1, dsf1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dka);
+      fence_regs(dva);
+      fence_regs(pf0);
+      fence_regs(dsf0);
+      fence_regs(pf1);
+      fence_regs(dsf1);
+      release(empty + it % NSTAGE);
+      ++it;
+      ++n;
     }
 
-    cp_async_wait_all();
-    __syncthreads();  // tile i+1 landed; every warp is done with tile i
-  }
-
-  const long long r_off = k_off + (long long)(warp * 16 + g) * k_st + 2 * t;
-  float* k0 = dk + r_off;
-  float* v0 = dv + r_off;
+    // dK and dV straight from registers; key rows past Tk (a ragged last
+    // KV tile: this consumer's 64 rows all lie past it) hold no gradient
+    if (ki * KBK + cw * 64 < Tk) {
 #pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt) {
-    *reinterpret_cast<float2*>(k0 + nt * 8) =
-        make_float2(dka[nt][0] * sm_scale, dka[nt][1] * sm_scale);
-    *reinterpret_cast<float2*>(k0 + 8 * k_st + nt * 8) =
-        make_float2(dka[nt][2] * sm_scale, dka[nt][3] * sm_scale);
-    *reinterpret_cast<float2*>(v0 + nt * 8) =
-        make_float2(dva[nt][0], dva[nt][1]);
-    *reinterpret_cast<float2*>(v0 + 8 * k_st + nt * 8) =
-        make_float2(dva[nt][2], dva[nt][3]);
+      for (int q = 0; q < 2; ++q) {
+        const int row = row0 + q * 8;
+        const long long off =
+            (bthd ? ((long long)b * Tk + row) * H + h
+                  : (long long)bh * Tk + row) *
+            D;
+#pragma unroll
+        for (int n8 = 0; n8 < D / 8; ++n8) {
+          const int e = 4 * n8 + 2 * q;
+          *reinterpret_cast<float2*>(dk + off + n8 * 8 + 2 * t) =
+              make_float2(dka[e] * sm_scale, dka[e + 1] * sm_scale);
+          *reinterpret_cast<float2*>(dv + off + n8 * 8 + 2 * t) =
+              make_float2(dva[e], dva[e + 1]);
+        }
+      }
+    }
   }
 }
+
+}  // namespace dkv
 
 // the arguments both kernels take, as the C interface passes them
 struct BwdArgs {
@@ -380,23 +521,26 @@ static int launch_dq(const BwdArgs& a, void* dq) {
   return (int)cudaGetLastError();
 }
 
-template <int D, typename T>
+template <int D>
 static int launch_dkv(const BwdArgs& a, void* dk, void* dv) {
-  const Strides qs(a.H, a.Tq, D, a.layout_bthd), ks(a.H, a.Tk, D,
-                                                     a.layout_bthd);
-  const size_t smem = dkv_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.Tk / BK, a.B * a.H);
-  flash_dkv_kernel<D, T><<<grid, NTHREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const bf16*>(a.dout),
+  using namespace dkv;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  const int bthd = a.layout_bthd, BH = a.B * a.H;
+  int dev, blocks;
+  if ((err = cudaGetDevice(&dev)) ||
+      (err = configure_smem<flash_dkv_kernel<D>>(dev, Dkv<D>::smem)) ||
+      (err = make_tile_map(&mq, a.q, a.B, a.H, a.Tq, D, bthd, KBQ)) ||
+      (err = make_tile_map(&mk, a.k, a.B, a.H, a.Tk, D, bthd, KBK)) ||
+      (err = make_tile_map(&mv, a.v, a.B, a.H, a.Tk, D, bthd, KBK)) ||
+      (err = make_tile_map(&mdo, a.dout, a.B, a.H, a.Tq, D, bthd, KBQ)) ||
+      (err = persistent_blocks(dev, BH * ((a.Tk + KBK - 1) / KBK),
+                               &blocks)))
+    return (int)err;
+  flash_dkv_kernel<D><<<blocks, THREADS, Dkv<D>::smem, a.stream>>>(
+      mq, mk, mv, mdo, static_cast<float*>(dk), static_cast<float*>(dv),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.Tq, a.Tk,
-      qs.sb, qs.sh, qs.st, ks.sb, ks.sh, ks.st, a.keep_full, a.keep_tri,
-      a.sm_scale);
+      BH, a.H, a.Tq, a.Tk, bthd, a.keep_full, a.keep_tri, a.sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -405,15 +549,15 @@ static int dispatch_dq(const BwdArgs& a, int D, void* dq) {
   FLASH_DISPATCH_D(D, launch_dq<DD, T>(a, dq))
 }
 
-template <typename T>
 static int dispatch_dkv(const BwdArgs& a, int D, void* dk, void* dv) {
-  FLASH_DISPATCH_D(D, launch_dkv<DD, T>(a, dk, dv))
+  FLASH_DISPATCH_D(D, launch_dkv<DD>(a, dk, dv))
 }
 
 // q [B,Tq,H,D] or [B,H,Tq,D], k/v the same with Tk, all of one dtype
-// (in_bf16: bf16, else f32); dout like q in bf16; lse and delta [B,H,Tq]
-// f32; all contiguous and 16-byte aligned. dq (like q), dk and dv (like k)
-// are written in f32. Each returns a cudaError_t value (0 on a successful
+// (in_bf16: bf16, else f32; flash_dkv takes bf16 only, the wrapper rounds
+// f32 inputs first); dout like q in bf16; lse and delta [B,H,Tq] f32; all
+// contiguous and 16-byte aligned. dq (like q), dk and dv (like k) are
+// written in f32. Each returns a cudaError_t value (0 on a successful
 // launch).
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
@@ -433,10 +577,10 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          int Tq, int Tk, int D, int layout_bthd, int in_bf16,
                          int keep_full, int keep_tri, float sm_scale,
                          void* stream) {
-  if (!flash_shape_ok(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  if (!flash_shape_ok(B, H, Tq, Tk, D) || !in_bf16)
+    return (int)cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, dout, lse, delta, B, H, Tq, Tk, layout_bthd,
                   keep_full, keep_tri, sm_scale,
                   static_cast<cudaStream_t>(stream)};
-  return in_bf16 ? dispatch_dkv<bf16>(a, D, dk, dv)
-                 : dispatch_dkv<float>(a, D, dk, dv);
+  return dispatch_dkv(a, D, dk, dv);
 }

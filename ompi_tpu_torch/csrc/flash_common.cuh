@@ -1,6 +1,8 @@
 // flash_common.cuh: what the flash attention kernels (flash_fwd.cu,
-// flash_bwd.cu) share: tile sizes, the shared-memory row stride, bf16
-// packing, the mma.sync m16n8k16 product and cp.async row staging.
+// flash_bwd.cu) share: constants, bf16 packing, the loop bound, the head
+// dim dispatch and the shape gate; and, for flash_dq, its 64-row tile
+// sizes, the shared-memory row stride, the mma.sync m16n8k16 product and
+// cp.async row staging (flash_fwd and flash_dkv use hopper.cuh instead).
 //
 // Fragment layout of mma.sync.m16n8k16 (bf16 in, f32 out), with g = lane/4
 // the row group and t = lane%4 the thread in the group:
@@ -153,10 +155,11 @@ struct Strides {
 // `_tile_bounds` of the TPU kernels: the KV tiles a Q tile visits -- every
 // one when fully attending, those up to the diagonal for the causal
 // triangle, none otherwise
+template <int TQ = BQ, int TK = BK>
 static __device__ __forceinline__ int kv_tile_end(int qi, int n_kv,
                                                   int keep_full,
                                                   int keep_tri) {
-  const int tri_hi = (qi * BQ + BQ + BK - 1) / BK;
+  const int tri_hi = (qi * TQ + TQ + TK - 1) / TK;
   return keep_full ? n_kv : (keep_tri ? min(tri_hi, n_kv) : 0);
 }
 

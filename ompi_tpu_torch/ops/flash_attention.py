@@ -20,6 +20,10 @@ Contract (the JAX package's):
   a CPU tensor to their plain versions ``flash_block_reference`` and
   ``flash_block_bwd_reference``. There is no other path: a CUDA call the
   kernels cannot take raises, in the forward.
+- ``flash_fwd`` and ``flash_dkv`` load their tiles by TMA, which cannot
+  convert types, so their wrappers round f32 q, k and v to bf16 before the
+  launch (round to nearest even, as the kernels' operands are rounded
+  anyway: the values the products see are the same).
 """
 
 from __future__ import annotations
@@ -193,6 +197,19 @@ def _check(q, k, v, layout):
     return B, H, Tq, Tk, D
 
 
+def _bf16(*xs):
+    """``xs`` in bf16, contiguous and 16-byte aligned, as TMA reads them
+    (a bf16 tensor that already is comes back as it is)."""
+    out = []
+    for x in xs:
+        if not (x.dtype == torch.bfloat16 and x.is_contiguous()
+                and x.data_ptr() % 16 == 0):
+            x = x.to(torch.bfloat16).contiguous()
+            x = x if x.data_ptr() % 16 == 0 else x.clone()
+        out.append(x)
+    return out
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -203,17 +220,19 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def flash_fwd(q, k, v, keep_full, keep_tri, sm_scale, layout):
-    """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: (out, lse)."""
+    """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: (out, lse). f32 q, k
+    and v are rounded to bf16 first (the kernel reads bf16 by TMA)."""
     global KERNEL_LAUNCHES
     B, H, Tq, Tk, D = _check(q, k, v, layout)
+    q, k, v = _bf16(q, k, v)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _entry("flash_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, H, Tq, Tk, D, int(layout == "bthd"),
-            int(q.dtype == torch.bfloat16), int(_flag(keep_full)),
-            int(_flag(keep_tri)), float(sm_scale), _stream(q))
+            lse.data_ptr(), B, H, Tq, Tk, D, int(layout == "bthd"), 1,
+            int(_flag(keep_full)), int(_flag(keep_tri)), float(sm_scale),
+            _stream(q))
     _raise_on(rc, "flash_fwd")
     KERNEL_LAUNCHES += 1
     return out, lse
@@ -230,10 +249,13 @@ def _bwd_args(q, k, v, dout, lse, delta, layout):
     if lse.shape != (B, H, Tq) or delta.shape != (B, H, Tq):
         raise ValueError(f"lse{tuple(lse.shape)} and delta"
                          f"{tuple(delta.shape)} must be {(B, H, Tq)}")
-    # dO is rounded to bf16 here, as the TPU kernels round it on load
-    do_b = dout.to(torch.bfloat16).contiguous()
-    lse = lse.to(torch.float32).contiguous()
-    delta = delta.to(torch.float32).contiguous()
+    # dO is rounded to bf16 here, as the TPU kernels round it on load;
+    # flash_dkv reads dO by TMA and lse and delta by bulk copy, all of
+    # which want 16-byte aligned rows
+    (do_b,) = _bf16(dout)
+    lse, delta = (x.to(torch.float32).contiguous() for x in (lse, delta))
+    lse, delta = (x if x.data_ptr() % 16 == 0 else x.clone()
+                  for x in (lse, delta))
     return dims, do_b, lse, delta
 
 
@@ -260,19 +282,21 @@ def flash_dq(q, k, v, dout, lse, delta, keep_full, keep_tri, sm_scale,
 def flash_dkv(q, k, v, dout, lse, delta, keep_full, keep_tri, sm_scale,
               layout):
     """Launch ``flash_dkv`` of ``csrc/flash_bwd.cu`` on CUDA tensors:
-    (dk, dv) like k, f32."""
+    (dk, dv) like k, f32. f32 q, k and v are rounded to bf16 first (the
+    kernel reads bf16 by TMA)."""
     global DKV_LAUNCHES
     (B, H, Tq, Tk, D), do_b, lse, delta = _bwd_args(q, k, v, dout, lse,
                                                     delta, layout)
+    q, k, v = _bf16(q, k, v)
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     with torch.cuda.device(q.device):
         rc = _entry("flash_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do_b.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, Tq, Tk, D, int(layout == "bthd"),
-            int(q.dtype == torch.bfloat16), int(_flag(keep_full)),
-            int(_flag(keep_tri)), float(sm_scale), _stream(q))
+            B, H, Tq, Tk, D, int(layout == "bthd"), 1,
+            int(_flag(keep_full)), int(_flag(keep_tri)), float(sm_scale),
+            _stream(q))
     _raise_on(rc, "flash_dkv")
     DKV_LAUNCHES += 1
     return dk, dv

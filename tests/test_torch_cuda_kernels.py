@@ -35,22 +35,38 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(shape, seed, device, dtype):
+def _qkv(shape, seed, device, dtype, k_shape=None):
+    """q of ``shape``; k and v of ``k_shape`` (default: the same)."""
     rng = np.random.RandomState(seed)
-    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
-        np.float32)).to(device, dtype) for _ in range(3))
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(device, dtype)
+        for s in (shape, k_shape or shape, k_shape or shape))
+
+
+# (layout, q shape, k/v shape or None for q's): four mixed cases, then in
+# both layouts every head dim the gate admits at a small T and a ragged
+# last tile (T = 192: the last 128-row tile is half past the sequence),
+# and Tq != Tk (a short Q shard against a long KV shard)
+CASES = ([("bthd", (2, 128, 3, 64), None), ("bhtd", (2, 3, 192, 128), None),
+          ("bhtd", (2, 4, 256, 32), None), ("bthd", (1, 64, 2, 16), None)]
+         + [(lay, (2, 2, 128, D) if lay == "bhtd" else (2, 128, 2, D), None)
+            for lay in ("bhtd", "bthd") for D in range(16, 129, 16)]
+         + [(lay, (1, 3, 192, D) if lay == "bhtd" else (1, 192, 3, D), None)
+            for lay in ("bhtd", "bthd") for D in (64, 80, 128)]
+         + [("bhtd", (1, 2, 128, 64), (1, 2, 1024, 64)),
+            ("bthd", (1, 128, 2, 64), (1, 1024, 2, 64))])
+CASE_IDS = [f"{lay}-{'x'.join(map(str, s))}" + (
+    f"-kv{'x'.join(map(str, ks))}" if ks else "") for lay, s, ks in CASES]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("layout,shape", [("bthd", (2, 128, 3, 64)),
-                                          ("bhtd", (2, 3, 192, 128)),
-                                          ("bhtd", (2, 4, 256, 32)),
-                                          ("bthd", (1, 64, 2, 16))])
+@pytest.mark.parametrize("layout,shape,k_shape", CASES, ids=CASE_IDS)
 @pytest.mark.parametrize("relation", sorted(RELATIONS))
-def test_flash_fwd_matches_plain(cuda, relation, layout, shape, dtype):
+def test_flash_fwd_matches_plain(cuda, relation, layout, shape, k_shape,
+                                 dtype):
     kf, kt = RELATIONS[relation]
-    q, k, v = _qkv(shape, 0, cuda, dtype)
+    q, k, v = _qkv(shape, 0, cuda, dtype, k_shape)
     before = tfa.KERNEL_LAUNCHES
     o_k, l_k = tfa.flash_block(q, k, v, kf, kt, layout=layout)
     assert tfa.KERNEL_LAUNCHES == before + 1
@@ -99,14 +115,10 @@ def test_contract_f32_on_card_matches_cpu(cuda):
     torch.testing.assert_close(out.cpu(), ref, atol=1e-3, rtol=1e-4)
 
 
-SHAPES = [("bthd", (2, 128, 3, 64)), ("bhtd", (2, 3, 192, 128)),
-          ("bhtd", (2, 4, 256, 32)), ("bthd", (1, 64, 2, 16))]
-
-
-def _bwd_inputs(shape, layout, seed, device, dtype, kf, kt):
+def _bwd_inputs(shape, layout, seed, device, dtype, kf, kt, k_shape=None):
     """q, k, v, a random output cotangent, the forward's lse and a delta
     with a non-zero lse cotangent folded in."""
-    q, k, v = _qkv(shape, seed, device, dtype)
+    q, k, v = _qkv(shape, seed, device, dtype, k_shape)
     rng = np.random.RandomState(seed + 100)
     dout = torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(device)
@@ -119,11 +131,12 @@ def _bwd_inputs(shape, layout, seed, device, dtype, kf, kt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("layout,shape", SHAPES)
+@pytest.mark.parametrize("layout,shape,k_shape", CASES, ids=CASE_IDS)
 @pytest.mark.parametrize("relation", sorted(RELATIONS))
-def test_flash_bwd_matches_plain(cuda, relation, layout, shape, dtype):
+def test_flash_bwd_matches_plain(cuda, relation, layout, shape, k_shape,
+                                 dtype):
     kf, kt = RELATIONS[relation]
-    args = _bwd_inputs(shape, layout, 0, cuda, dtype, kf, kt)
+    args = _bwd_inputs(shape, layout, 0, cuda, dtype, kf, kt, k_shape)
     dq0, dkv0 = tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES
     got = tfa.flash_block_bwd(*args, kf, kt, layout=layout)
     assert (tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES) == (dq0 + 1, dkv0 + 1)
@@ -139,11 +152,16 @@ def test_flash_bwd_matches_plain(cuda, relation, layout, shape, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_bwd_is_deterministic(cuda):
-    args = _bwd_inputs((2, 4, 256, 64), "bhtd", 5, cuda, torch.bfloat16,
-                       False, True)
-    a = tfa.flash_block_bwd(*args, False, True, layout="bhtd")
-    b = tfa.flash_block_bwd(*args, False, True, layout="bhtd")
+@pytest.mark.parametrize("shape,relation", [((2, 4, 256, 64), "causal"),
+                                            ((2, 3, 192, 128), "causal"),
+                                            ((2, 3, 192, 128), "full")])
+def test_flash_bwd_is_deterministic(cuda, shape, relation):
+    """One block owns each output tile, so no atomics: two runs give the
+    same bits, ragged last tile included."""
+    kf, kt = RELATIONS[relation]
+    args = _bwd_inputs(shape, "bhtd", 5, cuda, torch.bfloat16, kf, kt)
+    a = tfa.flash_block_bwd(*args, kf, kt, layout="bhtd")
+    b = tfa.flash_block_bwd(*args, kf, kt, layout="bhtd")
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
