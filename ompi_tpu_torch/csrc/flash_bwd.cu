@@ -23,37 +23,42 @@
 // probabilities, dS) in registers and stream the other side's tiles
 // through shared memory once per tile they own.
 //
-// Design. Each block owns one tile of the gradient it writes, so neither
-// kernel needs atomics and a run's result does not depend on scheduling.
-// - flash_dq (mma.sync m16n8k16): one block of 4 warps per (b*h, 64-row Q
-//   tile); each warp owns 16 rows. Q, dO, lse and delta of its rows stay
-//   in registers; K/V tiles of 64 rows stream through shared memory,
-//   double-buffered with cp.async. For each 16 KV columns it forms
-//   S = Q.K^T and dP = dO.V^T (bf16 in, f32 accumulation), turns them into
-//   dS, rounds dS to bf16 and feeds its C fragments straight in as the A
-//   fragment of dq += dS.K. f32 inputs are rounded to bf16 as they are
-//   staged.
-// - flash_dkv (wgmma, TMA, mbarriers; hopper.cuh): a persistent block per
-//   SM walks over work tiles (b*h, 128-row KV tile), the lowest KV tiles
-//   (which see the most Q tiles) first. A block is a producer warpgroup
-//   (setmaxnreg down to 24 registers), one thread of which loads K and V
-//   of each work tile by TMA, and its 64-row Q and dO tiles, with their lse
-//   and delta (per column here) by bulk copy beside them, through a ring
-//   of three stages with "full" and "empty" mbarriers; and two consumer
-//   warpgroups of 64 key rows each (setmaxnreg up to 240), whose dK and dV
-//   accumulators stay in registers. Per Q tile, in two halves of 32
-//   columns (so only one half's scores live beside them): the transposed
-//   tiles S^T = K.Q^T and dP^T = V.dO^T by wgmma m64n32k16 with both
-//   operands in shared memory (K-major), P^T and dS^T in bf16 registers as
-//   the A operand of dV += P^T.dO and dK += dS^T.Q (wgmma m64n{64,128}k16,
-//   dO and Q from shared memory through the transpose bit). Each half's
-//   scores are issued before the gradient products of the half before it,
-//   across Q tiles too, so P^T and dS^T are formed while the tensor cores
-//   run those. The causal mask is transposed (key row r is kept for query
-//   column c when r <= c) and applied only on tiles that cross the
-//   diagonal. dK and dV go out straight from registers, while the
-//   producer already loads the next work tile. Its f32 inputs are rounded
-//   to bf16 by the wrapper (TMA cannot convert).
+// Design (hopper.cuh holds the machinery). Each kernel is a persistent
+// block per SM that walks over work tiles, each of which it owns whole, so
+// neither needs atomics and a run's result does not depend on scheduling.
+// A block is a producer warpgroup (setmaxnreg down to 24 registers), one
+// thread of which issues every TMA load (128-byte swizzle) into a ring of
+// stages with "full" and "empty" mbarriers, and two consumer warpgroups
+// (setmaxnreg up to 240) whose gradient accumulators stay in registers
+// and go out from there. Each consumer arrives on every stage's empty
+// barrier, whether or not the causal mask left it anything to do. f32
+// inputs are rounded to bf16 by the wrapper (TMA cannot convert).
+// - flash_dq: work tiles (b*h, 128-row Q tile), head by head and in each
+//   head the heaviest causal Q tile first, so the blocks at work at one
+//   time share the K and V of a few heads in L2. The producer loads Q and
+//   dO of each work tile, and its 64-row K and V tiles through a ring of
+//   four stages; each consumer owns 64 Q rows, reads their lse and delta
+//   (per row) once a work tile, and per K/V tile issues S = Q.K^T and
+//   dP = dO.V^T (wgmma m64n64k16, both operands K-major in shared memory),
+//   forms dS in registers and rounds it to bf16 as the A operand of
+//   dq += dS.K (wgmma m64n{64,128}k16, K through the transpose bit). The
+//   scores of tile j go out before the dq product of tile j-1, so dS of
+//   tile j is formed while that product runs. The causal mask is applied
+//   only on tiles that cross the diagonal.
+// - flash_dkv: work tiles (b*h, 128-row KV tile), the lowest KV tiles
+//   (which see the most Q tiles) first. The producer loads K and V of each
+//   work tile, and its 64-row Q and dO tiles, with their lse and delta
+//   (per column here) by bulk copy beside them, through a ring of three
+//   stages; each consumer owns 64 key rows. Per Q tile, in two halves of
+//   32 columns (so only one half's scores live beside the dK and dV
+//   accumulators): the transposed tiles S^T = K.Q^T and dP^T = V.dO^T by
+//   wgmma m64n32k16 with both operands in shared memory (K-major), P^T and
+//   dS^T in bf16 registers as the A operand of dV += P^T.dO and
+//   dK += dS^T.Q (wgmma m64n{64,128}k16, dO and Q through the transpose
+//   bit). Each half's scores are issued before the gradient products of
+//   the half before it, across Q tiles too. The causal mask is transposed
+//   (key row r is kept for query column c when r <= c) and applied only on
+//   tiles that cross the diagonal.
 // As on the TPU, P and dS are rounded to bf16 before their products.
 
 #include "flash_common.cuh"
@@ -61,143 +66,261 @@
 
 using namespace hopper;
 
-// shared memory of a block: Q and dO tiles and two (K, V) tile pairs
+namespace dq {
+
+constexpr int QB = 128;         // Q rows of a work tile, 64 per consumer
+constexpr int KB = 64;          // K/V rows of a streamed tile
+constexpr int NSTAGE = 4;       // K/V ring depth
+constexpr int CONSUMERS = 256;  // two consumer warpgroups
+constexpr int THREADS = 384;    // and the producer warpgroup
+
 template <int D>
-static constexpr size_t dq_smem() {
-  return (size_t)(2 * BQ + 4 * BK) * Row<D>::bytes;
-}
+struct Dq {
+  static constexpr int NC = (D + 63) / 64;   // 64-column chunks
+  static constexpr int CQ = QB * 128;        // bytes of a Q/dO chunk
+  static constexpr int CK = KB * 128;        // bytes of a K/V chunk
+  static constexpr int STAGE = 2 * NC * CK;  // K then V
+  static constexpr int BARS = 2 * NC * CQ + NSTAGE * STAGE;
+  // Q/dO's full and empty barriers, then each stage's
+  static constexpr size_t smem = BARS + 8 * (2 + 2 * NSTAGE) + 1024;
+};
 
-template <int D, typename T>
-__global__ void __launch_bounds__(NTHREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dq,
-                int H, int Tq, int Tk, long long q_sb, long long q_sh,
-                long long q_st, long long k_sb, long long k_sh,
-                long long k_st, int keep_full, int keep_tri, float sm_scale) {
-  constexpr int DP = Row<D>::DP;
-  constexpr int KSTEPS = D / 16;  // depth steps of Q.K^T and dO.V^T
-  constexpr int NT_O = D / 8;     // 8-column tiles of dq
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BQ][DP]
-  bf16* sdO = sQ + BQ * DP;                  // [BQ][DP]
-  bf16* sKV = sdO + BQ * DP;                 // 2 x (K [BK][DP], V [BK][DP])
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv,
+                const __grid_constant__ CUtensorMap mdo,
+                float* __restrict__ out, const float* __restrict__ lse,
+                const float* __restrict__ delta, int BH, int H, int Tq,
+                int Tk, int bthd, int keep_full, int keep_tri,
+                float sm_scale) {
+  using L = Dq<D>;
+  constexpr int NC = L::NC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sdO = sQ + NC * L::CQ;
+  uint8_t* sKV = sdO + NC * L::CQ;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sQ + L::BARS);
+  uint64_t* qempty = qfull + 1;
+  uint64_t* full = qempty + 1;
+  uint64_t* empty = full + NSTAGE;
 
-  const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
+  const int n_q = (Tq + QB - 1) / QB;
+  const int n_kv = Tk / KB;
+  // Work tile w is Q tile n_q - 1 - w % n_q of (b*h) w / n_q: the Q tiles
+  // of one head go together, the heaviest causal one first
+  const Tiles tiles{BH * n_q};
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // row group of the mma fragments
-  const int t = lane & 3;   // thread in the group
 
-  const long long q_off = b * q_sb + h * q_sh + (long long)qi * BQ * q_st;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * k_sb + h * k_sh;
-
-  const int hi = kv_tile_end(qi, Tk / BK, keep_full, keep_tri);
-
-  load_rows<D>(sQ, q + q_off, q_st, BQ, tid);
-  load_rows<D>(sdO, dout + q_off, q_st, BQ, tid);
-  if (hi > 0) {
-    load_rows<D>(sKV, kb, k_st, BK, tid);
-    load_rows<D>(sKV + BK * DP, vb, k_st, BK, tid);
+  // a consumer warp's lane 0 arrives once it is done with a stage or Q/dO
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    mbar_init(qempty, CONSUMERS / 32);
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS / 32);
+    }
+    mbar_fence_init();
   }
-  cp_async_commit();
-  cp_async_wait_all();
   __syncthreads();
 
-  uint32_t qf[KSTEPS][4], df[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    load_a<DP>(qf[ks], sQ, warp * 16, ks * 16, g, t);
-    load_a<DP>(df[ks], sdO, warp * 16, ks * 16, g, t);
+  if (tid >= CONSUMERS) {  // the producer; its path never joins the others'
+    setmaxnreg_dec<24>();
+    if (tid != CONSUMERS) return;
+    int it = 0, n = 0;  // K/V tiles and Q/dO tiles loaded so far
+    for (int r = tiles.next(-1); r >= 0; r = tiles.next(r)) {
+      const int w = tiles.at(r);
+      const int qi = n_q - 1 - w % n_q, bh = w / n_q;
+      const int b = bh / H, h = bh - b * H;
+      const int hi = kv_tile_end<QB, KB>(qi, n_kv, keep_full, keep_tri);
+      for (int j = 0; j < hi; ++j, ++it) {
+        const int s = it % NSTAGE;
+        uint8_t* sK = sKV + s * L::STAGE;
+        mbar_wait(empty + s, ((it / NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(full + s, L::STAGE);
+        for (int c = 0; c < NC; ++c) {
+          tma_tile(sK + c * L::CK, &mk, full + s, bthd, c * 64, j * KB, h,
+                   b);
+          tma_tile(sK + (NC + c) * L::CK, &mv, full + s, bthd, c * 64,
+                   j * KB, h, b);
+        }
+        if (j == 0) {  // Q and dO, once the last scores of the previous tile
+          mbar_wait(qempty, (n & 1) ^ 1);
+          mbar_expect_tx(qfull, 2 * NC * L::CQ);
+          for (int c = 0; c < NC; ++c) {
+            tma_tile(sQ + c * L::CQ, &mq, qfull, bthd, c * 64, qi * QB, h,
+                     b);
+            tma_tile(sdO + c * L::CQ, &mdo, qfull, bthd, c * 64, qi * QB, h,
+                     b);
+          }
+          ++n;
+        }
+      }
+    }
+    return;
   }
 
-  // rows g and g+8 of this warp's 16: lse (log2 domain) and delta
-  const int row0 = qi * BQ + warp * 16 + g;
-  const float* lrow = lse + (long long)bh * Tq + row0;
-  const float* drow = delta + (long long)bh * Tq + row0;
-  const float lse2[2] = {lrow[0] * LOG2E, lrow[8] * LOG2E};
-  const float dlt[2] = {drow[0], drow[8]};
+  setmaxnreg_inc<240>();
+  const int cw = tid >> 7;  // consumer warpgroup: Q rows cw*64 ..
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // row group of the fragments
+  const int t = lane & 3;   // thread in the group
   const float scale2 = sm_scale * LOG2E;
+  auto stage = [&](int i) { return sKV + (i % NSTAGE) * L::STAGE; };
+  // this warp is done with a stage of the ring, or with Q and dO (only
+  // wgmma read them, so no proxy fence)
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
 
-  float acc[NT_O][4];
-#pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  int it = 0, n = 0;  // as the producer counts them
+  for (int r = tiles.next(-1); r >= 0; r = tiles.next(r)) {
+    const int w = tiles.at(r);
+    const int qi = n_q - 1 - w % n_q, bh = w / n_q;
+    const int b = bh / H, h = bh - b * H;
+    const int hi = kv_tile_end<QB, KB>(qi, n_kv, keep_full, keep_tri);
+    const int wg_row = qi * QB + cw * 64;  // first Q row of this consumer
+    const int row0 = wg_row + warp * 16 + g;  // and row0 + 8
 
-  for (int j = 0; j < hi; ++j) {
-    bf16* sK = sKV + (j & 1) * 2 * BK * DP;
-    const bf16* sV = sK + BK * DP;
-    if (j + 1 < hi) {
-      bf16* nK = sKV + ((j + 1) & 1) * 2 * BK * DP;
-      const long long off = (long long)(j + 1) * BK * k_st;
-      load_rows<D>(nK, kb + off, k_st, BK, tid);
-      load_rows<D>(nK + BK * DP, vb + off, k_st, BK, tid);
-    }
-    cp_async_commit();
+    float acc[NC * 32];  // 8-column block j of dq is acc[4j .. 4j+3]
+#pragma unroll
+    for (int i = 0; i < NC * 32; ++i) acc[i] = 0.0f;
 
+    if (hi > 0) {
+      // lse (log2 domain) and delta of rows row0 and row0 + 8; a ragged
+      // last Q tile's rows past Tq (this consumer's 64 rows all lie past
+      // it) read nothing and write nothing
+      float lse2[2] = {0.0f, 0.0f}, dlt[2] = {0.0f, 0.0f};
+      if (wg_row < Tq) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      // S and dP over KV columns kk*16 .. kk*16+15: two 8-column tiles
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.0f;
-#pragma unroll
-        for (int ks = 0; ks < KSTEPS; ++ks) {
-          uint32_t b0, b1;
-          load_bt<DP>(b0, b1, sK, kk * 16 + n * 8, ks * 16, g, t);
-          mma_bf16(s[n], qf[ks], b0, b1);
-          load_bt<DP>(b0, b1, sV, kk * 16 + n * 8, ks * 16, g, t);
-          mma_bf16(dp[n], df[ks], b0, b1);
+        for (int q = 0; q < 2; ++q) {
+          const long long at = (long long)bh * Tq + row0 + q * 8;
+          lse2[q] = lse[at] * LOG2E;
+          dlt[q] = delta[at];
         }
       }
-      // dS, rounded to bf16: the C fragments of the two 8-column tiles are
-      // the A fragment of the 16-deep step of dS.K
-      uint32_t dsf[4];
+      float s[KB / 2], dp[KB / 2];  // S and dP of a K/V tile, then dS in dp
+      uint32_t dsf[KB / 16][4];     // dS in bf16
+
+      // S = Q.K^T and dP = dO.V^T of K/V tile `i` of the ring over the
+      // head dim, 16 deep per product (the first overwrites); all four
+      // operands K-major
+      auto issue_scores = [&](int i) {
+        const uint64_t dQ = opaque(desc_sw128(sQ + cw * 64 * 128, 16));
+        const uint64_t dO = opaque(desc_sw128(sdO + cw * 64 * 128, 16));
+        const uint64_t dK = opaque(desc_sw128(stage(i), 16));
+        const uint64_t dV = opaque(desc_sw128(stage(i) + NC * L::CK, 16));
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = row0 + (e >> 1) * 8;
-          const int col = j * BK + kk * 16 + n * 8 + 2 * t + (e & 1);
-          const float p = (keep_full || col <= row)
-                              ? exp2f(s[n][e] * scale2 - lse2[e >> 1])
-                              : 0.0f;
-          ds[e] = p * (dp[n][e] - dlt[e >> 1]);
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const int oq = (ks >> 2) * L::CQ + (ks & 3) * 32;
+          const int ok = (ks >> 2) * L::CK + (ks & 3) * 32;
+          wgmma_ss<KB>(s, desc_at(dQ, oq), desc_at(dK, ok), ks != 0);
+          wgmma_ss<KB>(dp, desc_at(dO, oq), desc_at(dV, ok), ks != 0);
         }
-        dsf[n * 2] = pack_bf16(ds[0], ds[1]);
-        dsf[n * 2 + 1] = pack_bf16(ds[2], ds[3]);
-      }
+      };
+      // dq += dS.K of K/V tile `i`: K's rows are the depth, its columns
+      // (contiguous) N
+      auto issue_dq = [&](int i) {
+        const uint64_t dKt = opaque(desc_sw128(stage(i), L::CK));
 #pragma unroll
-      for (int nt = 0; nt < NT_O; ++nt) {
-        uint32_t b0, b1;
-        load_b<DP>(b0, b1, sK, kk * 16, nt * 8, g, t);
-        mma_bf16(acc[nt], dsf, b0, b1);
+        for (int kk = 0; kk < KB / 16; ++kk)
+          wgmma_rs<NC * 64>(acc, dsf[kk], desc_at(dKt, kk * 2048), 1);
+      };
+      // dS = P * (dP - delta) of the tile's j-th K/V tile, in f32 over dp;
+      // masked entries have p exactly 0. Only tiles that cross the
+      // diagonal need the mask.
+      auto to_ds = [&](int j) {
+        const bool mask = !keep_full && j * KB + KB - 1 > wg_row;
+#pragma unroll
+        for (int i = 0; i < KB / 2; ++i) {
+          const int q = (i >> 1) & 1;
+          float p = exp2_approx(fmaf(s[i], scale2, -lse2[q]));
+          if (mask && j * KB + (i >> 2) * 8 + 2 * t + (i & 1) > row0 + q * 8)
+            p = 0.0f;
+          dp[i] = p * (dp[i] - dlt[q]);
+        }
+      };
+      // dS rounded to bf16 (as on the TPU): accumulator blocks 2kk and
+      // 2kk+1 are the A operand of depth step kk of dS.K
+      auto to_dsf = [&]() {
+#pragma unroll
+        for (int n8 = 0; n8 < KB / 8; ++n8) {
+          dsf[n8 >> 1][(n8 & 1) * 2] = pack_bf16(dp[4 * n8], dp[4 * n8 + 1]);
+          dsf[n8 >> 1][(n8 & 1) * 2 + 1] =
+              pack_bf16(dp[4 * n8 + 2], dp[4 * n8 + 3]);
+        }
+      };
+      auto wait_kv = [&](int i) {
+        mbar_wait(full + i % NSTAGE, (i / NSTAGE) & 1);
+      };
+
+      // The scores of K/V tile j go out together with dq += dS.K of tile
+      // j-1; once the scores are done, dS of tile j is formed while that
+      // product runs. A stage is released when its dq product is done, Q
+      // and dO after the last scores.
+      mbar_wait(qfull, n & 1);
+      wait_kv(it);
+      wgmma_fence();
+      issue_scores(it);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (hi == 1) release(qempty);
+      to_ds(0);
+      to_dsf();
+      for (int j = 1; j < hi; ++j) {
+        const int i = it + j;
+        wait_kv(i);
+        wgmma_fence();
+        issue_scores(i);
+        wgmma_commit();
+        issue_dq(i - 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the scores of tile j
+        fence_regs(s);
+        fence_regs(dp);
+        if (j == hi - 1) release(qempty);
+        to_ds(j);
+        wgmma_wait<0>();  // dq += dS.K of tile j-1
+        fence_regs(acc);
+        fence_regs(dsf);
+        release(empty + (i - 1) % NSTAGE);
+        to_dsf();
       }
+      wgmma_fence();
+      issue_dq(it + hi - 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(dsf);
+      release(empty + (it + hi - 1) % NSTAGE);
+      it += hi;
+      ++n;
     }
 
-    cp_async_wait_all();
-    __syncthreads();  // tile j+1 landed; every warp is done with tile j
-  }
-
-  float* o0 = dq + q_off + (long long)(warp * 16 + g) * q_st + 2 * t;
-  float* o1 = o0 + 8 * q_st;
+    // dq straight from registers, scaled by sm_scale; rows past Tq are not
+    // written
+    if (wg_row < Tq) {
 #pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt) {
-    *reinterpret_cast<float2*>(o0 + nt * 8) =
-        make_float2(acc[nt][0] * sm_scale, acc[nt][1] * sm_scale);
-    *reinterpret_cast<float2*>(o1 + nt * 8) =
-        make_float2(acc[nt][2] * sm_scale, acc[nt][3] * sm_scale);
+      for (int q = 0; q < 2; ++q) {
+        const int row = row0 + q * 8;
+        float* orow = out + (bthd ? ((long long)b * Tq + row) * H + h
+                                  : (long long)bh * Tq + row) *
+                                D;
+#pragma unroll
+        for (int n8 = 0; n8 < D / 8; ++n8)
+          *reinterpret_cast<float2*>(orow + n8 * 8 + 2 * t) =
+              make_float2(acc[4 * n8 + 2 * q] * sm_scale,
+                          acc[4 * n8 + 2 * q + 1] * sm_scale);
+      }
+    }
   }
 }
+
+}  // namespace dq
 
 namespace dkv {
 
@@ -502,22 +625,25 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <int D, typename T>
-static int launch_dq(const BwdArgs& a, void* dq) {
-  const Strides qs(a.H, a.Tq, D, a.layout_bthd), ks(a.H, a.Tk, D,
-                                                     a.layout_bthd);
-  const size_t smem = dq_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.Tq / BQ, a.B * a.H);
-  flash_dq_kernel<D, T><<<grid, NTHREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const bf16*>(a.dout),
+template <int D>
+static int launch_dq(const BwdArgs& a, void* out) {
+  using namespace dq;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  const int bthd = a.layout_bthd, BH = a.B * a.H;
+  int dev, blocks;
+  if ((err = cudaGetDevice(&dev)) ||
+      (err = configure_smem<flash_dq_kernel<D>>(dev, Dq<D>::smem)) ||
+      (err = make_tile_map(&mq, a.q, a.B, a.H, a.Tq, D, bthd, QB)) ||
+      (err = make_tile_map(&mk, a.k, a.B, a.H, a.Tk, D, bthd, KB)) ||
+      (err = make_tile_map(&mv, a.v, a.B, a.H, a.Tk, D, bthd, KB)) ||
+      (err = make_tile_map(&mdo, a.dout, a.B, a.H, a.Tq, D, bthd, QB)) ||
+      (err = persistent_blocks(dev, BH * ((a.Tq + QB - 1) / QB), &blocks)))
+    return (int)err;
+  flash_dq_kernel<D><<<blocks, THREADS, Dq<D>::smem, a.stream>>>(
+      mq, mk, mv, mdo, static_cast<float*>(out),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(dq), a.H, a.Tq, a.Tk, qs.sb, qs.sh, qs.st, ks.sb,
-      ks.sh, ks.st, a.keep_full, a.keep_tri, a.sm_scale);
+      BH, a.H, a.Tq, a.Tk, bthd, a.keep_full, a.keep_tri, a.sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -544,31 +670,30 @@ static int launch_dkv(const BwdArgs& a, void* dk, void* dv) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int dispatch_dq(const BwdArgs& a, int D, void* dq) {
-  FLASH_DISPATCH_D(D, launch_dq<DD, T>(a, dq))
+static int dispatch_dq(const BwdArgs& a, int D, void* out) {
+  FLASH_DISPATCH_D(D, launch_dq<DD>(a, out))
 }
 
 static int dispatch_dkv(const BwdArgs& a, int D, void* dk, void* dv) {
   FLASH_DISPATCH_D(D, launch_dkv<DD>(a, dk, dv))
 }
 
-// q [B,Tq,H,D] or [B,H,Tq,D], k/v the same with Tk, all of one dtype
-// (in_bf16: bf16, else f32; flash_dkv takes bf16 only, the wrapper rounds
-// f32 inputs first); dout like q in bf16; lse and delta [B,H,Tq] f32; all
-// contiguous and 16-byte aligned. dq (like q), dk and dv (like k) are
-// written in f32. Each returns a cudaError_t value (0 on a successful
-// launch).
+// q [B,Tq,H,D] or [B,H,Tq,D], k/v the same with Tk, dout like q, all bf16
+// (in_bf16 must be 1: the wrapper rounds f32 inputs to bf16 first); lse
+// and delta [B,H,Tq] f32; all contiguous and 16-byte aligned. dq (like q),
+// dk and dv (like k) are written in f32. Each returns a cudaError_t value
+// (0 on a successful launch).
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, int B, int H, int Tq, int Tk, int D,
                         int layout_bthd, int in_bf16, int keep_full,
                         int keep_tri, float sm_scale, void* stream) {
-  if (!flash_shape_ok(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  if (!flash_shape_ok(B, H, Tq, Tk, D) || !in_bf16)
+    return (int)cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, dout, lse, delta, B, H, Tq, Tk, layout_bthd,
                   keep_full, keep_tri, sm_scale,
                   static_cast<cudaStream_t>(stream)};
-  return in_bf16 ? dispatch_dq<bf16>(a, D, dq) : dispatch_dq<float>(a, D, dq);
+  return dispatch_dq(a, D, dq);
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v,

@@ -1,5 +1,5 @@
-// hopper.cuh: the Hopper (sm_90a) machinery of the redesigned flash
-// kernels (flash_fwd.cu, flash_dkv in flash_bwd.cu): mbarriers, named
+// hopper.cuh: the Hopper (sm_90a) machinery of the flash kernels
+// (flash_fwd.cu, flash_dq and flash_dkv in flash_bwd.cu): mbarriers, named
 // barriers and setmaxnreg for a producer warpgroup and its consumers, TMA
 // tile loads, shared-memory matrix descriptors and warpgroup products
 // (wgmma), the walk of a persistent block over its work tiles, and the
@@ -13,13 +13,14 @@
 // their own in the products.
 //
 // Accumulator layout of wgmma m64nN (f32): warp w of the warpgroup holds
-// rows 16w..16w+15; its fragment for 8-column block j is the mma.sync
-// m16n8k16 C fragment: d[4j], d[4j+1] = (g, 8j+2t..8j+2t+1), d[4j+2],
-// d[4j+3] = (g+8, 8j+2t..), with g = lane/4 and t = lane%4. A register A
-// operand (m64k16) has the mma.sync A layout per warp, so the accumulator
-// blocks 2k and 2k+1, rounded to bf16, are the A operand of depth step k.
+// rows 16w..16w+15; for 8-column block j, d[4j], d[4j+1] = (g,
+// 8j+2t..8j+2t+1) and d[4j+2], d[4j+3] = (g+8, 8j+2t..), with g = lane/4
+// and t = lane%4 (rows relative to the warp's first). A register A operand
+// (m64k16, bf16 pairs) holds per warp a0 = (g, 2t..2t+1), a1 = (g+8,
+// 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..), so the accumulator blocks
+// 2k and 2k+1, rounded to bf16, are the A operand of depth step k.
 //
-// Both kernels' blocks are a producer warpgroup, one thread of which
+// Every kernel's block is a producer warpgroup, one thread of which
 // issues every TMA load, and two consumer warpgroups that run the
 // products; setmaxnreg moves registers from the first to the others
 // (24 and 240 a thread, from 168 at entry).
@@ -249,6 +250,20 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
       HOPPER_R16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
       "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      HOPPER_R16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) ", "
+      HOPPER_R16(16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30,
+                 31)
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -20,10 +20,11 @@ Contract (the JAX package's):
   a CPU tensor to their plain versions ``flash_block_reference`` and
   ``flash_block_bwd_reference``. There is no other path: a CUDA call the
   kernels cannot take raises, in the forward.
-- ``flash_fwd`` and ``flash_dkv`` load their tiles by TMA, which cannot
-  convert types, so their wrappers round f32 q, k and v to bf16 before the
-  launch (round to nearest even, as the kernels' operands are rounded
-  anyway: the values the products see are the same).
+- The kernels load their tiles by TMA, which cannot convert types, so the
+  wrappers round f32 q, k and v (and dO) to bf16 before the launch (round
+  to nearest even, as the kernels' operands are rounded anyway: the values
+  the products see are the same). ``flash_block_bwd`` checks and rounds
+  its arguments once for both backward kernels.
 """
 
 from __future__ import annotations
@@ -38,8 +39,7 @@ import torch
 from ompi_tpu_torch.ops import _build
 
 NEG_BIG = -1e30
-BLOCK_Q = 64
-BLOCK_K = 64
+SEQ_MULTIPLE = 64  # both sequence lengths must be multiples of it
 
 # Launches of each CUDA kernel (flash_fwd, flash_dq, flash_dkv); a run
 # resets them and reads them to show that its path went through the kernels.
@@ -61,13 +61,14 @@ def _dims(q_shape, k_shape, layout: str) -> Tuple[int, int, int, int, int]:
 
 def flash_supported(q_shape, k_shape, layout: str = "bthd") -> bool:
     """Static gate for the Hopper kernels, forward and backward alike:
-    64-row Q and KV tiles must divide the shards and the head dim must fit
-    the kernels (a multiple of the tensor cores' 16-deep bf16 step, at most
+    SEQ_MULTIPLE must divide both shards and the head dim must fit the
+    kernels (a multiple of the tensor cores' 16-deep bf16 step, at most
     128). The kernels stream their tiles through shared memory, so no
     residency limit applies."""
     _, _, Tq, Tk, D = _dims(q_shape, k_shape, layout)
-    return (D % 16 == 0 and 16 <= D <= 128 and Tq >= BLOCK_Q
-            and Tk >= BLOCK_K and Tq % BLOCK_Q == 0 and Tk % BLOCK_K == 0)
+    return (D % 16 == 0 and 16 <= D <= 128 and Tq >= SEQ_MULTIPLE
+            and Tk >= SEQ_MULTIPLE and Tq % SEQ_MULTIPLE == 0
+            and Tk % SEQ_MULTIPLE == 0)
 
 
 def _flag(x) -> bool:
@@ -239,8 +240,8 @@ def flash_fwd(q, k, v, keep_full, keep_tri, sm_scale, layout):
 
 
 def _bwd_args(q, k, v, dout, lse, delta, layout):
-    """Checked shapes and the bf16 dO, f32 lse and delta the backward
-    kernels read."""
+    """Checked shapes, and the bf16 q, k, v and dO and the f32 lse and delta
+    that the backward kernels read (TMA and 16-byte aligned rows)."""
     dims = _check(q, k, v, layout)
     B, H, Tq = dims[0], dims[1], dims[2]
     if dout.shape != q.shape or dout.device != q.device:
@@ -249,57 +250,61 @@ def _bwd_args(q, k, v, dout, lse, delta, layout):
     if lse.shape != (B, H, Tq) or delta.shape != (B, H, Tq):
         raise ValueError(f"lse{tuple(lse.shape)} and delta"
                          f"{tuple(delta.shape)} must be {(B, H, Tq)}")
-    # dO is rounded to bf16 here, as the TPU kernels round it on load;
-    # flash_dkv reads dO by TMA and lse and delta by bulk copy, all of
-    # which want 16-byte aligned rows
-    (do_b,) = _bf16(dout)
+    # dO is rounded to bf16 here, as the TPU kernels round it on load
     lse, delta = (x.to(torch.float32).contiguous() for x in (lse, delta))
     lse, delta = (x if x.data_ptr() % 16 == 0 else x.clone()
                   for x in (lse, delta))
-    return dims, do_b, lse, delta
+    return dims, (*_bf16(q, k, v, dout), lse, delta)
 
 
-def flash_dq(q, k, v, dout, lse, delta, keep_full, keep_tri, sm_scale,
-             layout):
-    """Launch ``flash_dq`` of ``csrc/flash_bwd.cu`` on CUDA tensors: dq
-    like q, f32."""
+def _launch_dq(dims, ins, keep_full, keep_tri, sm_scale, layout):
+    """``flash_dq`` on what ``_bwd_args`` prepared: dq like q, f32."""
     global DQ_LAUNCHES
-    (B, H, Tq, Tk, D), do_b, lse, delta = _bwd_args(q, k, v, dout, lse,
-                                                    delta, layout)
+    B, H, Tq, Tk, D = dims
+    q = ins[0]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _entry("flash_dq")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do_b.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Tq, Tk, D,
-            int(layout == "bthd"), int(q.dtype == torch.bfloat16),
-            int(_flag(keep_full)), int(_flag(keep_tri)), float(sm_scale),
-            _stream(q))
+            *(x.data_ptr() for x in ins), dq.data_ptr(), B, H, Tq, Tk, D,
+            int(layout == "bthd"), 1, int(_flag(keep_full)),
+            int(_flag(keep_tri)), float(sm_scale), _stream(q))
     _raise_on(rc, "flash_dq")
     DQ_LAUNCHES += 1
     return dq
 
 
-def flash_dkv(q, k, v, dout, lse, delta, keep_full, keep_tri, sm_scale,
-              layout):
-    """Launch ``flash_dkv`` of ``csrc/flash_bwd.cu`` on CUDA tensors:
-    (dk, dv) like k, f32. f32 q, k and v are rounded to bf16 first (the
-    kernel reads bf16 by TMA)."""
+def _launch_dkv(dims, ins, keep_full, keep_tri, sm_scale, layout):
+    """``flash_dkv`` on what ``_bwd_args`` prepared: (dk, dv) like k, f32."""
     global DKV_LAUNCHES
-    (B, H, Tq, Tk, D), do_b, lse, delta = _bwd_args(q, k, v, dout, lse,
-                                                    delta, layout)
-    q, k, v = _bf16(q, k, v)
+    B, H, Tq, Tk, D = dims
+    q, k = ins[0], ins[1]
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     with torch.cuda.device(q.device):
         rc = _entry("flash_dkv")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do_b.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr(),
             B, H, Tq, Tk, D, int(layout == "bthd"), 1,
             int(_flag(keep_full)), int(_flag(keep_tri)), float(sm_scale),
             _stream(q))
     _raise_on(rc, "flash_dkv")
     DKV_LAUNCHES += 1
     return dk, dv
+
+
+def flash_dq(q, k, v, dout, lse, delta, keep_full, keep_tri, sm_scale,
+             layout):
+    """Launch ``flash_dq`` of ``csrc/flash_bwd.cu`` on CUDA tensors: dq
+    like q, f32."""
+    return _launch_dq(*_bwd_args(q, k, v, dout, lse, delta, layout),
+                      keep_full, keep_tri, sm_scale, layout)
+
+
+def flash_dkv(q, k, v, dout, lse, delta, keep_full, keep_tri, sm_scale,
+              layout):
+    """Launch ``flash_dkv`` of ``csrc/flash_bwd.cu`` on CUDA tensors:
+    (dk, dv) like k, f32."""
+    return _launch_dkv(*_bwd_args(q, k, v, dout, lse, delta, layout),
+                       keep_full, keep_tri, sm_scale, layout)
 
 
 def flash_delta(o, dout, g_lse, layout: str = "bthd") -> torch.Tensor:
@@ -322,10 +327,9 @@ def flash_block_bwd(q, k, v, dout, lse, delta, keep_full, keep_tri,
         return flash_block_bwd_reference(q, k, v, dout, lse, delta,
                                          keep_full, keep_tri, sm_scale,
                                          layout)
-    dq = flash_dq(q, k, v, dout, lse, delta, keep_full, keep_tri, sm_scale,
-                  layout)
-    dk, dv = flash_dkv(q, k, v, dout, lse, delta, keep_full, keep_tri,
-                       sm_scale, layout)
+    args = _bwd_args(q, k, v, dout, lse, delta, layout)
+    dq = _launch_dq(*args, keep_full, keep_tri, sm_scale, layout)
+    dk, dv = _launch_dkv(*args, keep_full, keep_tri, sm_scale, layout)
     return dq, dk, dv
 
 

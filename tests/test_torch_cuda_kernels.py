@@ -43,18 +43,21 @@ def _qkv(shape, seed, device, dtype, k_shape=None):
         for s in (shape, k_shape or shape, k_shape or shape))
 
 
-# (layout, q shape, k/v shape or None for q's): four mixed cases, then in
-# both layouts every head dim the gate admits at a small T and a ragged
-# last tile (T = 192: the last 128-row tile is half past the sequence),
-# and Tq != Tk (a short Q shard against a long KV shard)
+# (layout, q shape, k/v shape or None for q's): five mixed cases (T = 64
+# leaves a 128-row Q tile half empty), then in both layouts every head dim
+# the gate admits at a small T and a ragged last tile (T = 192: the last
+# 128-row tile is half past the sequence), and Tq != Tk (a short Q shard
+# against a long KV shard, and a ragged Q shard against one KV tile)
 CASES = ([("bthd", (2, 128, 3, 64), None), ("bhtd", (2, 3, 192, 128), None),
-          ("bhtd", (2, 4, 256, 32), None), ("bthd", (1, 64, 2, 16), None)]
+          ("bhtd", (2, 4, 256, 32), None), ("bthd", (1, 64, 2, 16), None),
+          ("bhtd", (1, 2, 64, 128), None)]
          + [(lay, (2, 2, 128, D) if lay == "bhtd" else (2, 128, 2, D), None)
             for lay in ("bhtd", "bthd") for D in range(16, 129, 16)]
          + [(lay, (1, 3, 192, D) if lay == "bhtd" else (1, 192, 3, D), None)
             for lay in ("bhtd", "bthd") for D in (64, 80, 128)]
          + [("bhtd", (1, 2, 128, 64), (1, 2, 1024, 64)),
-            ("bthd", (1, 128, 2, 64), (1, 1024, 2, 64))])
+            ("bthd", (1, 128, 2, 64), (1, 1024, 2, 64)),
+            ("bhtd", (1, 2, 192, 128), (1, 2, 64, 128))])
 CASE_IDS = [f"{lay}-{'x'.join(map(str, s))}" + (
     f"-kv{'x'.join(map(str, ks))}" if ks else "") for lay, s, ks in CASES]
 
@@ -154,16 +157,22 @@ def test_flash_bwd_matches_plain(cuda, relation, layout, shape, k_shape,
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,relation", [((2, 4, 256, 64), "causal"),
                                             ((2, 3, 192, 128), "causal"),
-                                            ((2, 3, 192, 128), "full")])
+                                            ((2, 3, 192, 128), "full"),
+                                            ((1, 2, 64, 128), "causal")])
 def test_flash_bwd_is_deterministic(cuda, shape, relation):
-    """One block owns each output tile, so no atomics: two runs give the
-    same bits, ragged last tile included."""
+    """One block owns each output tile, so no atomics: two runs of
+    flash_dq and of flash_dkv give the same bits, ragged last tile
+    included."""
     kf, kt = RELATIONS[relation]
     args = _bwd_inputs(shape, "bhtd", 5, cuda, torch.bfloat16, kf, kt)
-    a = tfa.flash_block_bwd(*args, kf, kt, layout="bhtd")
-    b = tfa.flash_block_bwd(*args, kf, kt, layout="bhtd")
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    sm = shape[-1] ** -0.5
+    dq = [tfa.flash_dq(*args, kf, kt, sm, "bhtd") for _ in range(2)]
+    assert torch.equal(dq[0], dq[1]), "dq"
+    a = tfa.flash_block_bwd(*args, kf, kt, sm, layout="bhtd")
+    b = tfa.flash_block_bwd(*args, kf, kt, sm, layout="bhtd")
+    assert torch.equal(a[0], dq[0]), "dq through flash_block_bwd"
+    for name, x, y in zip(("dq", "dk", "dv"), a, b):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.cuda
