@@ -16,7 +16,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    version, the PyTorch library call for the same function, the card's
    bound, the achieved TF/s and the share of the bound: ``flash_fwd``,
    then ``flash_dq`` and ``flash_dkv`` with a random output cotangent and
-   a non-zero lse cotangent;
+   a non-zero lse cotangent; then both again at the shapes one rank of
+   the mesh phase (4c) gives them;
 4. the main paths, at the flagship width (vocab 32768, d_model 1024,
    8 heads, 8 layers, d_ff 4096, seq 1024, batch 8, random weights and
    tokens from a seed), each with the kernel launch counts set to 0 just
@@ -27,6 +28,20 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    - training: the first step's loss and every gradient held against the
      plain attention path from the same parameters, then one warm-up step
      and 3 timed steps of ``make_train_step`` (forward, backward, SGD);
+4c. the multi-rank path ("mesh"), at the flagship width with 2 layers, as
+   worlds of processes that share the one card (``parallel.launch``); the
+   kernels run on the card, the collectives over gloo through host memory
+   (the transport is printed):
+   - ring attention alone at sp = 2 and sp = 4, causal [8, 8, 1024, 128]
+     bf16 'bhtd' with a random output cotangent: the gathered output, dq,
+     dk and dv against one ``flash_block`` of the whole sequence;
+   - the training step at (dp, sp, tp) = (2, 2, 2), 8 ranks, global batch
+     4: the first step's loss and every gradient (allreduced over
+     ("dp", "sp"), gathered over tp) against the single-rank
+     ``loss_and_grads`` on the same weights and batch, then two steps, the
+     second with a lower loss;
+   - on every rank, with the counts reset before it, each flash kernel
+     launched sp times for the ring and sp * n_layers times for a step;
 5. with ``--profile``: the flagship forward and one training step under
    ``torch.profiler``, the device time of the 20 largest kernels and of
    every flash kernel, and the device's busy share;
@@ -347,6 +362,11 @@ def phase_kernels(fa, card):
     check_flash_bwd(fa, (4, 8, 256, 32), "bhtd", torch.bfloat16, 4)
     # a ragged last 128-row Q tile (flash_dq) and 128-row KV tile (flash_dkv)
     check_flash_bwd(fa, (2, 3, 192, 128), "bhtd", torch.bfloat16, 5)
+    # the shapes a rank of the mesh phase gives the kernels, every relation
+    # and a random lse cotangent
+    for shape in mesh_kernel_shapes():
+        check_flash(fa, shape, "bhtd", torch.bfloat16, 6)
+        check_flash_bwd(fa, shape, "bhtd", torch.bfloat16, 6)
 
     # times at the causal flagship shape; dO is bf16 already, so each
     # wrapper call is its kernel and no cast
@@ -545,6 +565,204 @@ def phase_train(fa, tfm, params, cfg, card):
     return counts, (step, params, toks, tgts)
 
 
+# the multi-rank phase: the flagship's width at 2 layers, global batch 4
+MESH_MODEL = dict(FLAGSHIP, n_layers=2)
+MESH_LAYOUT = (2, 2, 2)
+MESH_BATCH = 4
+RING_SHAPE = (BATCH, FLAGSHIP["n_heads"], FLAGSHIP["seq_len"],
+              FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
+RING_SPS = (2, 4)
+
+
+def mesh_kernel_shapes():
+    """The [B, H, T, D] blocks one rank's kernels take in the mesh phase:
+    the ring's sequence shard at each sp, then the step's batch, head and
+    sequence shard."""
+    B, H, T, D = RING_SHAPE
+    dp, sp, tp = MESH_LAYOUT
+    return [(B, H, T // n, D) for n in RING_SPS] + [
+        (MESH_BATCH // dp, MESH_MODEL["n_heads"] // tp,
+         MESH_MODEL["seq_len"] // sp, D)]
+
+
+def _world_ms(fn):
+    """fn() between two barriers of the world, with the card synchronised:
+    (its result, wall ms)."""
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _ring_rank(sp, seed):
+    """One rank of the ring world: causal ring attention forward and
+    backward on its sequence shard, once to warm up and once counted and
+    timed; rank 0 holds the gathered output and gradients against one
+    flash_block of the whole sequence."""
+    from ompi_tpu_torch.ops import flash_attention as fa
+    from ompi_tpu_torch.ops import ring_attention as ra
+    from ompi_tpu_torch.parallel import axes
+
+    mesh = axes.current_mesh()
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(RING_SHAPE).astype(
+        np.float32)).to(mesh.device, torch.bfloat16) for _ in range(4))
+    r, n = axes.rank("sp"), RING_SHAPE[2] // sp
+    mine = lambda x: x[:, :, r * n:(r + 1) * n].contiguous()
+
+    def run():
+        local = [mine(x).requires_grad_() for x in (q, k, v)]
+        o = ra.ring_attention(*local, "sp", sp, causal=True, layout="bhtd")
+        o.backward(mine(g))
+        return [o.detach()] + [x.grad for x in local]
+
+    run()
+    reset_launches(fa)
+    got, ms = _world_ms(run)
+    counts = launches(fa)
+    with torch.no_grad():
+        got = [axes.allgather(x, "sp", concat_dim=2) for x in got]
+    out = dict(counts=counts, ms=ms, transport=mesh.backend,
+               staged=mesh.staged)
+    if r == 0:
+        ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        o_ref, _ = fa.flash_block(*ref, False, True, layout="bhtd")
+        o_ref.backward(g.float())
+        ref = [o_ref.detach()] + [x.grad for x in ref]
+        out["err"] = {name: float((a.float() - b.float()).abs().max()
+                                  / b.float().abs().max())
+                      for name, a, b in zip(("out", "dq", "dk", "dv"),
+                                            got, ref)}
+    return out
+
+
+def _step_rank(model, batch, seed):
+    """One rank of the (dp, sp, tp) training world: the first step's loss
+    and gradients (reduced over ("dp", "sp"), gathered over tp), held by
+    rank 0 against the single-rank path on the card; the wall ms of a
+    forward and backward and of the gradient allreduce; then two counted,
+    timed steps."""
+    from ompi_tpu_torch.models import transformer as tfm
+    from ompi_tpu_torch.ops import flash_attention as fa
+    from ompi_tpu_torch.parallel import axes
+
+    mesh = axes.current_mesh()
+    dims = tuple(mesh.shape[a] for a in axes.AXES)
+    cfg = tfm.Config(**model)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             mesh.device)
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, cfg.vocab, size=(batch, cfg.seq_len))
+    tgts = np.roll(toks, -1, axis=1)
+    step, place = tfm.make_train_step(cfg, mesh.device, *dims)
+    local, t, g = place(params, toks, tgts)
+
+    loss, grads = tfm.loss_and_grads(local, t, g, cfg)
+    loss = float(axes.allreduce(loss, ("dp", "sp")))
+    grads = tfm.gather_params(tfm.allreduce_grads(grads),
+                              tfm.param_leaves(tfm.param_specs(cfg)))
+    out = dict(transport=mesh.backend, staged=mesh.staged)
+    if axes.rank(("dp", "sp")) == 0 and axes.rank("tp") == 0:
+        # the replicated leaves of ``local`` are ``params``' own tensors:
+        # the reference runs before any step updates them
+        with axes.use_mesh(None):
+            full_t, full_g = (torch.from_numpy(x).to(mesh.device)
+                              for x in (toks, tgts))
+            loss_1, grads_1 = tfm.loss_and_grads(params, full_t, full_g, cfg)
+        names = leaf_names(params)
+        out["loss"], out["loss_1"] = loss, float(loss_1)
+        out["rl2"] = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                      for n, a, b in zip(names, grads, grads_1)}
+        del grads_1
+    # where a step's wall time goes: forward and backward (the ring's
+    # shifts and the tp allreduces in them), then the gradient allreduce,
+    # in one buffer as the step does it and one a leaf, in turns
+    (_, grads), out["fb_ms"] = _world_ms(
+        lambda: tfm.loss_and_grads(local, t, g, cfg))
+    ar = {"flat": lambda: tfm.allreduce_grads(grads),
+          "leaf": lambda: [axes.allreduce(x, ("dp", "sp")) for x in grads]}
+    out["ar_ms"] = {k: [] for k in ar}
+    for k in ("flat", "leaf", "leaf", "flat"):
+        out["ar_ms"][k].append(_world_ms(ar[k])[1])
+    del grads
+    reset_launches(fa)
+    (loss1, _), out["ms"] = _world_ms(lambda: step(local, t, g))
+    out["counts"] = launches(fa)
+    (loss2, _), out["ms2"] = _world_ms(lambda: step(local, t, g))
+    out["losses"] = [float(loss1), float(loss2)]
+    return out
+
+
+def phase_mesh(card):
+    """Phase 4c: the ring worlds at sp = 2 and 4, then the training world;
+    returns each kernel's launches a rank in the step."""
+    from ompi_tpu_torch.parallel.launch import run_world
+
+    for sp in RING_SPS:
+        t0 = time.perf_counter()
+        ranks = run_world(_ring_rank, sp, "cuda", sp, 10 + sp,
+                          shape=(1, sp, 1), timeout=400)
+        world_s = time.perf_counter() - t0
+        err = ranks[0]["err"]
+        counts = [rk["counts"] for rk in ranks]
+        print(f"mesh ring sp={sp} {RING_SHAPE} bf16 causal over "
+              f"{ranks[0]['transport']} (host-staged: {ranks[0]['staged']}):"
+              f" max err / max|x| out {err['out']:.3e} dq {err['dq']:.3e} "
+              f"dk {err['dk']:.3e} dv {err['dv']:.3e}; forward+backward wall "
+              f"ms by rank {[round(rk['ms'], 3) for rk in ranks]}; launches "
+              f"a rank {counts[0]}; world {world_s:.1f} s with start-up, "
+              f"{sp} processes on {card}", flush=True)
+        require(all(c == {name: sp for name in c} for c in counts),
+                f"ring sp={sp}: launches by rank {counts}, expected {sp} "
+                f"of each kernel on every rank")
+        require(max(err.values()) <= GRAD_TOL,
+                f"ring sp={sp} against one flash_block: {err} > {GRAD_TOL}")
+
+    dp, sp, tp = MESH_LAYOUT
+    t0 = time.perf_counter()
+    ranks = run_world(_step_rank, dp * sp * tp, "cuda", MESH_MODEL,
+                      MESH_BATCH, 2, shape=MESH_LAYOUT, timeout=900)
+    world_s = time.perf_counter() - t0
+    head = ranks[0]
+    loss_err = abs(head["loss"] - head["loss_1"]) / abs(head["loss_1"])
+    worst = max(head["rl2"], key=head["rl2"].get)
+    want = sp * MESH_MODEL["n_layers"]
+    counts = [rk["counts"] for rk in ranks]
+    losses = head["losses"]
+    ar_ms = {k: [round(x, 3) for x in v] for k, v in head["ar_ms"].items()}
+    print(f"mesh step {MESH_LAYOUT} (dp, sp, tp), {MESH_MODEL}, global batch "
+          f"{MESH_BATCH} over {head['transport']} (host-staged: "
+          f"{head['staged']}): loss {head['loss']:.6f} vs single-rank "
+          f"{head['loss_1']:.6f} (relative error {loss_err:.3e}), gradients' "
+          f"relative L2 error largest {head['rl2'][worst]:.3e} ({worst}), "
+          f"median {sorted(head['rl2'].values())[len(head['rl2']) // 2]:.3e}"
+          f" over {len(head['rl2'])} tensors; steps' losses "
+          f"{losses[0]:.6f}, {losses[1]:.6f}; step wall ms by rank "
+          f"{[round(rk['ms'], 3) for rk in ranks]}, second step "
+          f"{[round(rk['ms2'], 3) for rk in ranks]}; of a step on rank 0, "
+          f"forward+backward {head['fb_ms']:.3f} ms and the gradient "
+          f"allreduce over (dp, sp) {ar_ms['flat']} ms in one buffer, "
+          f"{ar_ms['leaf']} ms one a leaf (in turns); launches a rank and "
+          f"step {counts[0]}; world {world_s:.1f} s with start-up, "
+          f"{dp * sp * tp} processes on {card}", flush=True)
+    require(all(c == {name: want for name in c} for c in counts),
+            f"mesh step: launches by rank {counts}, expected {want} of each "
+            f"kernel on every rank")
+    require(np.isfinite(head["loss"]) and loss_err <= LOSS_RTOL,
+            f"mesh step loss {head['loss']} vs single-rank {head['loss_1']}")
+    require(head["rl2"][worst] <= GRAD_RL2,
+            f"mesh step gradients vs single-rank: {head['rl2'][worst]:.3e} "
+            f"on {worst}")
+    require(all(np.isfinite(losses)) and losses[1] < losses[0],
+            f"mesh steps' losses {losses}: finite and falling")
+    return counts[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -588,6 +806,7 @@ def main() -> int:
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
     serve_counts, tokens = phase_serve(fa, tfm, entry_mod, params, cfg, card)
     train_counts, train_args = phase_train(fa, tfm, params, cfg, card)
+    mesh_counts = phase_mesh(card)
 
     # 5. where the time goes
     if args.profile:
@@ -607,7 +826,8 @@ def main() -> int:
             "name": name, "route": "cuda", "design": DESIGN[name],
             "source": f"ompi_tpu_torch/csrc/{src}",
             "replaces": f"ompi_tpu/ops/flash_attention.py:{line}",
-            "launches": n, **res[name]})
+            "launches": n, "mesh_launches_a_rank": mesh_counts[name],
+            **res[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

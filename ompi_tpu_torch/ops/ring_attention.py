@@ -1,11 +1,18 @@
-"""Ring attention: the port of ompi_tpu/ops/ring_attention.py, ring of one.
+"""Ring attention: the port of ompi_tpu/ops/ring_attention.py.
 
-A sequence sharded over an ``sp`` axis would rotate K/V around the ring and
-merge the block pairs in (out, lse) space. This slice ports the ``sp == 1``
-case, one block pair, which is what the single-card forward runs; the ring
-over ``torch.distributed`` (sp > 1) comes with the multi-rank slice.
+A sequence of length S is sharded S/sp per rank along the ``sp`` mesh axis.
+K/V blocks rotate around the ring (``axes.shift``, point-to-point sends over
+``torch.distributed``) while each rank's Q block merges the block pairs'
+normalized partials in (out, lse) space, the flash-style log-sum-exp
+combine. A ring of one (``sp == 1``) is one block pair and no merge.
 
-The block pair goes through the Hopper flash kernel
+Causality across blocks: the block from ring index ``kv_idx`` is attended
+fully when ``kv_idx < my``, with the causal triangle when ``kv_idx == my``
+and not at all when ``kv_idx > my``; a rank knows its index, so the
+relation is a Python bool. Every ring step runs its block pair, "none"
+blocks included, as the JAX ring does.
+
+Each block pair goes through the Hopper flash kernel
 (``ops/flash_attention.py``) whenever the tensors lie on the card; a shape
 the kernel cannot take raises there rather than running plain attention on
 the card. CPU tensors take the chunked plain path, as the JAX package takes
@@ -20,6 +27,7 @@ from typing import Optional
 import torch
 
 from ompi_tpu_torch.ops.flash_attention import flash_block
+from ompi_tpu_torch.parallel import axes
 
 NEG_BIG = -1e30
 
@@ -83,6 +91,23 @@ def _chunked_block(q, k, v, keep_full, keep_tri, sm_scale, mxu_dtype,
     return out, lse
 
 
+def _one_block(q, k, v, keep_full, keep_tri, sm_scale, mxu_dtype, chunk,
+               use_flash, layout):
+    """One Q-shard x KV-shard block pair -> (out in the input layout f32,
+    lse [B, H, Tq] f32), through the flash route or the chunked path."""
+    if use_flash:
+        return flash_block(q, k, v, keep_full, keep_tri, sm_scale,
+                           layout=layout)
+    if layout == "bhtd":
+        # the chunked path is bthd-native; transpose at the boundary
+        tr = lambda x: x.transpose(1, 2)
+        o, lse = _chunked_block(tr(q), tr(k), tr(v), keep_full, keep_tri,
+                                sm_scale, mxu_dtype, chunk)
+        return tr(o), lse
+    return _chunked_block(q, k, v, keep_full, keep_tri, sm_scale, mxu_dtype,
+                          chunk)
+
+
 def use_flash_default(q: torch.Tensor) -> bool:
     """The Hopper kernel for tensors on the card, the chunked plain path for
     CPU tensors. Unlike the JAX gate this does not consult
@@ -94,34 +119,77 @@ def ring_attention(q, k, v, axis_name: str, sp_size: int,
                    sm_scale: Optional[float] = None, causal: bool = True,
                    mxu_dtype: Optional[torch.dtype] = None, chunk: int = 512,
                    use_flash: Optional[bool] = None, layout: str = "bthd"):
-    """Sequence-parallel causal attention over the ``axis_name`` ring.
+    """Sequence-parallel attention over the ``axis_name`` ring of
+    ``sp_size`` ranks.
 
-    q, k, v: [B, T, H, D] ('bthd') or [B, H, T, D] ('bhtd', the layout the
-    model emits). Returns the output in the input layout and dtype. Only a
-    ring of one (``sp_size == 1``) is ported so far.
+    q, k, v: this rank's shards, [B, S/sp, H, D] ('bthd') or
+    [B, H, S/sp, D] ('bhtd', the layout the model emits). Returns the local
+    output shard in the input layout and dtype. ``use_flash`` None takes the
+    Hopper kernels for CUDA tensors and the chunked path for CPU tensors;
+    True on CPU tensors takes the kernels' plain versions. ``mxu_dtype``
+    and ``chunk`` are the chunked path's.
     """
-    if sp_size != 1:
-        raise NotImplementedError(
-            "ring attention over sp > 1 arrives with the multi-rank slice "
-            "of the port (ROADMAP.md, queue A)")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if use_flash is None:
         use_flash = use_flash_default(q)
-    # degenerate ring: one block pair, already normalized, no merge
-    if use_flash:
-        o, _ = flash_block(q, k, v, not causal, causal, sm_scale,
-                           layout=layout)
-    elif layout == "bhtd":
-        # the chunked path is bthd-native; transpose at the boundary
-        tr = lambda x: x.transpose(1, 2)
-        o, _ = _chunked_block(tr(q), tr(k), tr(v), not causal, causal,
-                              sm_scale, mxu_dtype, chunk)
-        o = tr(o)
-    else:
-        o, _ = _chunked_block(q, k, v, not causal, causal, sm_scale,
-                              mxu_dtype, chunk)
-    return o.to(q.dtype)
+    block = lambda k_blk, v_blk, kf, kt: _one_block(
+        q, k_blk, v_blk, kf, kt, sm_scale, mxu_dtype, chunk, use_flash,
+        layout)
+    if sp_size == 1:
+        # degenerate ring: one block pair, already normalized, no merge
+        o, _ = block(k, v, not causal, causal)
+        return o.to(q.dtype)
+    if sp_size != axes.size(axis_name):
+        raise ValueError(f"sp_size {sp_size} but the mesh's {axis_name!r} "
+                         f"axis has {axes.size(axis_name)} ranks")
+
+    def lift(x):
+        """[B, H, T] row stats broadcast against the output layout."""
+        return x[..., None] if layout == "bhtd" else _bhq_to_bqh1(x)
+
+    my = axes.rank(axis_name)
+    B, H = q.shape[0], q.shape[1 if layout == "bhtd" else 2]
+    T = q.shape[2 if layout == "bhtd" else 1]
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.full((B, H, T), NEG_BIG, dtype=torch.float32,
+                     device=q.device)
+    k_blk, v_blk = k, v
+    for step in range(sp_size):
+        kv_idx = (my - step) % sp_size  # whose block this rank holds
+        if causal:
+            keep_full, keep_tri = kv_idx < my, kv_idx == my
+        else:
+            keep_full, keep_tri = True, False
+        o_p, lse_p = block(k_blk, v_blk, keep_full, keep_tri)
+        # log-sum-exp merge of normalized partials (all finite: the -1e30
+        # sentinel keeps the exps and their gradients NaN-free)
+        lse_new = torch.logaddexp(lse, lse_p)
+        out = (out * lift(torch.exp(lse - lse_new))
+               + o_p * lift(torch.exp(lse_p - lse_new)))
+        lse = lse_new
+        if step != sp_size - 1:
+            k_blk = axes.shift(k_blk, axis_name)
+            v_blk = axes.shift(v_blk, axis_name)
+    return out.to(q.dtype)
+
+
+def ring_attention_sharded(q, k, v, axis_name: str = "sp",
+                           causal: bool = True, **kwargs):
+    """Whole-sequence entry: every rank passes the global q, k, v
+    ([B, S, H, D], or [B, H, S, D] with ``layout='bhtd'``), takes its shard
+    of the sequence along ``axis_name`` and gets back the global output,
+    gathered over the axis. Keyword arguments go to ``ring_attention``."""
+    sp = axes.size(axis_name)
+    tdim = 2 if kwargs.get("layout", "bthd") == "bhtd" else 1
+    if q.shape[tdim] % sp:
+        raise ValueError(f"sequence {q.shape[tdim]} does not split {sp} "
+                         f"ways over {axis_name!r}")
+    n = q.shape[tdim] // sp
+    local = [x.narrow(tdim, axes.rank(axis_name) * n, n).contiguous()
+             for x in (q, k, v)]
+    out = ring_attention(*local, axis_name, sp, causal=causal, **kwargs)
+    return axes.allgather(out, axis_name, concat_dim=tdim)
 
 
 def reference_attention(q, k, v, causal: bool = True):

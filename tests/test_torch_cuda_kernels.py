@@ -12,16 +12,23 @@ The backward kernels are held to their plain version at 2e-2 of each
 gradient's largest magnitude: both round P and dS to bf16, but values near
 a rounding boundary may round apart after the two sum in other orders, and
 one bf16 ulp is 4e-3 relative. The "none" block gives exact zeros.
+
+The last tests run two ranks that share the card (``parallel.launch``):
+the facts the shared-card transport rests on, and every verb staged
+through host memory, exactly.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from ompi_tpu_torch.models import transformer as ttfm
 from ompi_tpu_torch.ops import flash_attention as tfa
 from ompi_tpu_torch.ops import mxu as tmxu
 from ompi_tpu_torch.ops import ring_attention as tra
+from ompi_tpu_torch.parallel import axes as taxes
+from ompi_tpu_torch.parallel.launch import run_world
 
 RELATIONS = {"causal": (False, True), "full": (True, False),
              "none": (False, False)}
@@ -219,3 +226,78 @@ def test_contract_f32_grads_on_card_match_cpu(cuda):
         grads.append((xd.grad.cpu(), wd.grad.cpu()))
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, atol=2e-2, rtol=1e-2)
+
+
+# ---------------------------------------------- two ranks sharing the card
+
+
+def _rank_gloo_p2p():
+    """A point-to-point exchange of CUDA tensors over the gloo world."""
+    r = dist.get_rank()
+    x = torch.full((4,), float(r), device="cuda")
+    ops = [dist.P2POp(dist.isend, x, 1 - r),
+           dist.P2POp(dist.irecv, torch.empty_like(x), 1 - r)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    torch.cuda.synchronize()
+    return True
+
+
+def _rank_nccl():
+    """An allreduce of a CUDA tensor over an nccl group of both ranks."""
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x, group=dist.new_group([0, 1], backend="nccl"))
+    torch.cuda.synchronize()
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", [_rank_gloo_p2p, _rank_nccl],
+                         ids=["gloo-p2p", "nccl"])
+def test_ranks_sharing_the_card_cannot_use(cuda, probe):
+    """What the shared-card transport rests on: gloo moves no CUDA tensor
+    point to point (a rank raises or aborts), and NCCL takes no two ranks
+    on one device. So such a world is gloo and stages through the host."""
+    with pytest.raises(RuntimeError):
+        run_world(probe, 2, "cuda", timeout=120.0)
+
+
+def _rank_verbs():
+    """Every verb over "dp" on this rank's CUDA tensor, whose sums are
+    exact in f32."""
+    dev = taxes.current_mesh().device
+    x = torch.arange(8.0, device=dev).reshape(4, 2) + 10 * taxes.rank("dp")
+    out = {"allreduce": taxes.allreduce(x, "dp"),
+           "max": taxes.allreduce(x, "dp", "max"),
+           "reduce_scatter": taxes.reduce_scatter(x, "dp", 0),
+           "reduce_scatter_untiled": taxes.reduce_scatter(x[:, :2], "dp", 1,
+                                                          tiled=False),
+           "allgather": taxes.allgather(x, "dp", 1),
+           "alltoall": taxes.alltoall(x, "dp", 0, 1),
+           "bcast": taxes.bcast(x, "dp", 1),
+           "shift": taxes.shift(x, "dp")}
+    assert all(y.device == x.device for y in out.values())
+    mesh = taxes.current_mesh()
+    return mesh.backend, mesh.staged, {k: y.cpu().numpy()
+                                       for k, y in out.items()}
+
+
+@pytest.mark.cuda
+def test_staged_verbs_on_the_card_are_exact(cuda):
+    """Two ranks sharing the card get a gloo world staged through host
+    memory, and every verb gives exactly the sums and moves it should."""
+    ranks = run_world(_rank_verbs, 2, "cuda", timeout=180.0)
+    xs = [np.arange(8.0, dtype=np.float32).reshape(4, 2) + 10 * r
+          for r in range(2)]
+    total = xs[0] + xs[1]
+    for r, (backend, staged, got) in enumerate(ranks):
+        assert backend == "gloo" and staged
+        want = {"allreduce": total, "max": xs[1],
+                "reduce_scatter": total[2 * r:2 * r + 2],
+                "reduce_scatter_untiled": total[:, r],
+                "allgather": np.concatenate(xs, 1),
+                "alltoall": np.concatenate(
+                    [x[2 * r:2 * r + 2] for x in xs], 1),
+                "bcast": xs[1], "shift": xs[1 - r]}
+        for name, w in want.items():
+            np.testing.assert_array_equal(got[name], w, err_msg=name)

@@ -43,7 +43,7 @@ def test_the_scan_sees_a_forbidden_import():
     "ompi_tpu_torch.models.transformer", "ompi_tpu_torch.ops._build",
     "ompi_tpu_torch.ops.flash_attention", "ompi_tpu_torch.ops.mxu",
     "ompi_tpu_torch.ops.ring_attention", "ompi_tpu_torch.ops.softmax_xent",
-    "ompi_tpu_torch.parallel.axes"])
+    "ompi_tpu_torch.parallel.axes", "ompi_tpu_torch.parallel.launch"])
 def test_modules_import_without_building(mod):
     importlib.import_module(mod)
     from ompi_tpu_torch.ops import _build

@@ -1,26 +1,46 @@
-"""The port's sp=1 ring attention and dense reference against JAX.
+"""The port's ring attention and dense reference against JAX.
 
-JAX's ``ring_attention`` runs under ``shard_map`` on a 1-device 'sp' mesh
-and, on the CPU, takes its chunked lax path; the port on the CPU takes its
-chunked plain path. Same algorithm and bf16 rounding, other summation
-order: tolerance 1e-4 where both sides compute in f32 end to end, 1e-2 where
-the result is rounded to bf16 (one bf16 ulp at these magnitudes).
+At sp = 1 JAX's ``ring_attention`` runs under ``shard_map`` on a 1-device
+'sp' mesh and, on the CPU, takes its chunked lax path; the port on the CPU
+takes its chunked plain path. At sp = 2, 4 and 8 one world of 8 gloo ranks
+runs every case (the mesh rebuilt as (8/sp, sp, 1) for each sp) against JAX
+``ring_attention_sharded`` on the 8-device virtual CPU mesh, forward and
+q/k/v gradients, on the chunked path and on the flash route (the kernels'
+plain versions on CPU tensors).
+
+Same algorithm, other summation order: tolerance 1e-4 where both sides
+compute in f32 end to end, 1e-2 where the result is rounded to bf16 (one
+bf16 ulp at these magnitudes), 2e-2 for the flash route, whose plain
+version rounds q, k, v and P to bf16 where the JAX lax path does not. The
+ranks import this module, so it imports JAX only inside a fixture.
 """
 
 import numpy as np
 import pytest
-
-import jax
-import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
-
 import torch
 
-from ompi_tpu.ops import ring_attention as jra
-from ompi_tpu.parallel.axes import shard_map_compat
 from ompi_tpu_torch.ops import ring_attention as tra
+from ompi_tpu_torch.parallel import axes as taxes
+from ompi_tpu_torch.parallel.launch import run_world
 
 B, T, H, D = 2, 32, 2, 16
+S = 64  # the global sequence of the multi-rank cases
+RING_CASES = [(sp, causal, layout, route) for sp in (2, 4, 8)
+              for causal in (True, False) for layout in ("bthd", "bhtd")
+              for route in ("chunked", "flash")]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_imports():
+    """JAX and the JAX package, bound as this module's globals here and not
+    at its top: the ranks of the world import this module."""
+    global jax, jnp, Mesh, P, jra, shard_map_compat
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from ompi_tpu.ops import ring_attention as jra
+    from ompi_tpu.parallel.axes import shard_map_compat
 
 
 def _qkv(seed, layout, dtype=np.float32):
@@ -105,7 +125,131 @@ def test_cpu_tensors_take_the_plain_path():
     assert not tra.use_flash_default(q)
 
 
-def test_sp_above_one_is_not_ported_yet():
-    q = torch.zeros(1, 8, 1, 16)
-    with pytest.raises(NotImplementedError):
+def test_sp_size_must_match_the_mesh():
+    q = torch.zeros(1, 64, 1, 16)
+    with pytest.raises(ValueError):
         tra.ring_attention(q, q, q, "sp", 2)
+
+
+# ------------------------------------------------------- sp > 1, one world
+
+
+def _ring_inputs(case):
+    """Global q, k, v and the output cotangent of a case, [B, S, H, D] or
+    [B, H, S, D]; both routes of a case draw the same."""
+    sp, causal, layout, _ = case
+    rng = np.random.RandomState(100 * sp + 10 * causal + (layout == "bhtd"))
+    shape = (B, S, H, D) if layout == "bthd" else (B, H, S, D)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
+
+
+def _rank_ring():
+    """Every ring case on this rank: rank 0 returns, for each, the global
+    output of ``ring_attention_sharded``, the global output and q, k, v
+    gradients gathered from the local shards' backward, and whether each
+    rank's gradients are finite."""
+    r = torch.distributed.get_rank()
+    out = []
+    for sp in (2, 4, 8):
+        taxes.init_mesh(8 // sp, sp, 1)
+        for case in (c for c in RING_CASES if c[0] == sp):
+            _, causal, layout, route = case
+            q, k, v, g = (torch.from_numpy(x) for x in _ring_inputs(case))
+            kw = dict(causal=causal, layout=layout,
+                      use_flash=route == "flash")
+            sharded = tra.ring_attention_sharded(q, k, v, "sp", **kw)
+            tdim = 2 if layout == "bhtd" else 1
+            n = S // sp
+            mine = lambda x: x.narrow(tdim, taxes.rank("sp") * n, n)
+            local = [mine(x).clone().requires_grad_() for x in (q, k, v)]
+            o = tra.ring_attention(*local, "sp", sp, **kw)
+            o.backward(mine(g))
+            gather = lambda x: taxes.allgather(x, "sp", concat_dim=tdim)
+            with torch.no_grad():
+                got = [gather(o)] + [gather(x.grad) for x in local]
+            finite = all(bool(torch.isfinite(x.grad).all()) for x in local)
+            if r == 0:
+                out.append((sharded.numpy(), [x.numpy() for x in got],
+                            finite))
+            else:
+                out.append((None, None, finite))
+    return out
+
+
+@pytest.fixture(scope="module")
+def ring_world():
+    return run_world(_rank_ring, 8, "cpu", shape=(4, 2, 1))
+
+
+@pytest.fixture(scope="module")
+def jax_ring():
+    """JAX ``ring_attention_sharded`` at each sp on the virtual CPU mesh:
+    (output, q/k/v gradients) per case, in the case's layout."""
+    res = {}
+    for sp in (2, 4, 8):
+        mesh = Mesh(np.array(jax.devices()[:sp]), ("sp",))
+        for causal in (True, False):
+            fn = jax.jit(lambda q, k, v, c=causal, m=mesh:
+                         jra.ring_attention_sharded(q, k, v, m, "sp", c))
+            for layout in ("bthd", "bhtd"):
+                case = (sp, causal, layout, "chunked")
+                q, k, v, g = _ring_inputs(case)
+                tr = (lambda x: x) if layout == "bthd" else (
+                    lambda x: np.swapaxes(x, 1, 2))
+                y, back = jax.vjp(fn, *(jnp.asarray(tr(x)) for x in (q, k, v)))
+                grads = back(jnp.asarray(tr(g)))
+                res[sp, causal, layout] = [tr(np.asarray(x))
+                                           for x in (y, *grads)]
+    return res
+
+
+@pytest.mark.parametrize("case", RING_CASES,
+                         ids=[f"sp{c[0]}-{'causal' if c[1] else 'full'}-"
+                              f"{c[2]}-{c[3]}" for c in RING_CASES])
+def test_ring_matches_jax_ring_attention_sharded(ring_world, jax_ring, case):
+    sharded, got, _ = ring_world[0][RING_CASES.index(case)]
+    sp, causal, layout, route = case
+    ref = jax_ring[sp, causal, layout]
+    tol = 1e-4 if route == "chunked" else 2e-2
+    np.testing.assert_allclose(sharded, ref[0], rtol=tol, atol=tol)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=name)
+    # and the dense reference of the whole sequence
+    q, k, v, _ = _ring_inputs(case)
+    tr = (lambda x: x) if layout == "bthd" else (
+        lambda x: np.swapaxes(x, 1, 2))
+    dense = tr(np.asarray(jra.reference_attention(
+        *(jnp.asarray(tr(x)) for x in (q, k, v)), causal=causal)))
+    np.testing.assert_allclose(sharded, dense, rtol=tol, atol=tol)
+
+
+def test_every_rank_gets_finite_ring_gradients(ring_world):
+    assert all(f for rank in ring_world for _, _, f in rank)
+
+
+@pytest.mark.parametrize("use_flash", [False, True],
+                         ids=["chunked", "flash"])
+def test_merge_with_a_fully_masked_block_has_finite_gradients(use_flash):
+    """A causal triangle merged with a "none" block (every row fully
+    masked: out 0, lse -1e30), as a ring step merges it, with random
+    cotangents on both the merged output and the merged lse: the
+    sentinel keeps every gradient finite, and the masked block's k and v
+    get exact zeros."""
+    rng = np.random.RandomState(9)
+    q, k, v, k2, v2, g = (torch.from_numpy(rng.standard_normal(
+        (1, 2, 64, 16)).astype(np.float32)).requires_grad_()
+        for _ in range(6))
+    g_lse = torch.from_numpy(rng.standard_normal((1, 2, 64)).astype(
+        np.float32))
+    block = lambda kk, vv, kf, kt: tra._one_block(
+        q, kk, vv, kf, kt, 0.25, None, 16, use_flash, "bhtd")
+    o1, l1 = block(k, v, False, True)
+    o2, l2 = block(k2, v2, False, False)
+    assert not o2.any() and bool((l2 == np.float32(tra.NEG_BIG)).all())
+    lse = torch.logaddexp(l1, l2)
+    out = (o1 * torch.exp(l1 - lse)[..., None]
+           + o2 * torch.exp(l2 - lse)[..., None])
+    torch.autograd.backward((out, lse), (g.detach(), g_lse))
+    for x in (q, k, v, k2, v2):
+        assert bool(torch.isfinite(x.grad).all())
+    assert not k2.grad.any() and not v2.grad.any()

@@ -7,30 +7,41 @@ same branch, with the chunked attention path on both sides) at rtol/atol
 2e-2, and against JAX ``forward()`` (dense f32 reference attention) at
 5e-2: there the attention probabilities are not rounded to bf16 before
 P.V, which moves the logits by up to a few bf16 ulps after two layers.
+
+The sharding plan is held leaf by leaf against the JAX ``param_specs``, and
+``shard_params``/``gather_params`` in a world of 8 gloo ranks at (2, 2, 2).
+The ranks import this module, so it imports JAX only inside a fixture.
 """
 
 import numpy as np
 import pytest
-
-import jax
-import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
-
 import torch
 
-from ompi_tpu.models import transformer as jtfm
-from ompi_tpu.ops import mxu as jmxu
-from ompi_tpu.ops import softmax_xent as jxent
-from ompi_tpu.parallel.axes import shard_map_compat
 from ompi_tpu_torch import entry as tentry
 from ompi_tpu_torch.models import transformer as ttfm
 from ompi_tpu_torch.ops import mxu as tmxu
 from ompi_tpu_torch.ops import softmax_xent as txent
 from ompi_tpu_torch.parallel import axes as taxes
+from ompi_tpu_torch.parallel.launch import run_world
 
 SHAPE = dict(vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
              seq_len=32)
 BATCH = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_imports():
+    """JAX and the JAX package, bound as this module's globals here and not
+    at its top: the ranks of the world import this module."""
+    global jax, jnp, Mesh, P, jtfm, jmxu, jxent, shard_map_compat
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from ompi_tpu.models import transformer as jtfm
+    from ompi_tpu.ops import mxu as jmxu
+    from ompi_tpu.ops import softmax_xent as jxent
+    from ompi_tpu.parallel.axes import shard_map_compat
 
 
 @pytest.fixture(scope="module")
@@ -170,3 +181,102 @@ def test_entry_on_cpu_runs():
     logits = fn(params, tokens)
     assert tuple(logits.shape) == (4, 256, 8192)
     assert bool(torch.isfinite(logits).all())
+
+
+# ------------------------------------------------------ the sharding plan
+
+
+def test_param_specs_match_the_jax_plan():
+    cfg = ttfm.Config(**SHAPE)
+    ours = ttfm.param_leaves(ttfm.param_specs(cfg))
+    theirs = jax.tree_util.tree_leaves(
+        jtfm.param_specs(jtfm.Config(**SHAPE)),
+        is_leaf=lambda x: isinstance(x, P))
+    assert len(ours) == len(theirs) == 3 + 6 * SHAPE["n_layers"]
+    for a, b in zip(ours, theirs):
+        assert a == tuple(b)
+
+
+def _rank_roundtrip(params_np):
+    """This rank's slice of every parameter, and the tree gathered back."""
+    cfg = ttfm.Config(**SHAPE)
+    specs = ttfm.param_specs(cfg)
+    local = ttfm.shard_params(ttfm.params_from_jax(params_np, "cpu"), specs)
+    back = ttfm.gather_params(local, specs)
+    leaves = lambda t: [x.numpy() for x in ttfm.param_leaves(t)]
+    return leaves(local), leaves(back)
+
+
+@pytest.fixture(scope="module")
+def roundtrip():
+    params = jax.tree.map(np.asarray, jtfm.init_params(
+        jax.random.PRNGKey(0), jtfm.Config(**SHAPE)))
+    return params, run_world(_rank_roundtrip, 8, "cpu", params,
+                             shape=(2, 2, 2))
+
+
+def test_gather_params_of_shard_params_is_the_tree(roundtrip):
+    params, ranks = roundtrip
+    full = jax.tree_util.tree_leaves(params)
+    for _, back in ranks:
+        assert len(back) == len(full)
+        for a, b in zip(back, full):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_shard_params_gives_each_rank_its_tp_slice(roundtrip):
+    """The slices are those JAX's NamedSharding gives device r of the
+    (2, 2, 2) mesh: split over tp only, the same on every dp and sp."""
+    params, ranks = roundtrip
+    specs = jax.tree_util.tree_leaves(
+        jtfm.param_specs(jtfm.Config(**SHAPE)),
+        is_leaf=lambda x: isinstance(x, P))
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 2, 2),
+                ("dp", "sp", "tp"))
+    for leaf, spec, i in zip(jax.tree_util.tree_leaves(params), specs,
+                             range(len(specs))):
+        arr = jax.device_put(leaf, jax.sharding.NamedSharding(mesh, spec))
+        for shard in arr.addressable_shards:
+            r = list(mesh.devices.flat).index(shard.device)
+            np.testing.assert_array_equal(ranks[r][0][i],
+                                          np.asarray(shard.data))
+
+
+# ------------------------------------------------------ dryrun_multichip
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_factor_matches_the_jax_entry(n):
+    import __graft_entry__
+
+    assert tentry._factor(n) == __graft_entry__._factor(n)
+
+
+def test_dryrun_multichip_on_cpu_gives_a_finite_loss():
+    loss = tentry.dryrun_multichip(8, "cpu")
+    # a random-init model over 64 tokens starts in the order of log(64)
+    assert np.isfinite(loss) and 0.5 * np.log(64) < loss < 2 * np.log(64)
+
+
+def test_dryrun_multichip_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tentry.dryrun_multichip(8)
+
+
+def test_dryrun_configs(monkeypatch):
+    """On the CPU the JAX dry run's model exactly; on the card one whose
+    heads and sequence shards the flash kernels take."""
+    from ompi_tpu_torch.ops.flash_attention import flash_supported
+
+    cfg = tentry.dryrun_config(8, "cpu")
+    assert (cfg.vocab, cfg.d_model, cfg.n_heads, cfg.n_layers, cfg.d_ff,
+            cfg.seq_len) == (64, 32, 8, 2, 64, 16)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    card = tentry.dryrun_config(8, "cuda")
+    assert (card.d_model, card.n_heads, card.seq_len) == (128, 8, 128)
+    _, sp, tp = tentry._factor(8)
+    shard = (2, card.n_heads // tp, card.seq_len // sp, card.head_dim)
+    assert flash_supported(shard, shard, "bhtd")
+    assert not flash_supported(*[(2, 8 // tp, cfg.seq_len // sp,
+                                  cfg.head_dim)] * 2, "bhtd")
