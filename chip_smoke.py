@@ -42,6 +42,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      second with a lower loss;
    - on every rank, with the counts reset before it, each flash kernel
      launched sp times for the ring and sp * n_layers times for a step;
+4d. the mesh-mode communicator ("comm"), in this process:
+   ``mesh_world(8)`` on the card against ``mesh_world(8, "cpu")``, every
+   verb on the world, Split(r % 2), the non-uniform Split, a Split with
+   UNDEFINED colours, Create_group([0, 2, 5]) and a 2x4 cart (periodic,
+   open, and its Sub), with f32, int32 and bool payloads and SUM, PROD,
+   MAX, MIN, LAND, LOR, BAND, MINLOC/MAXLOC and a user op: bit-exact but a
+   world float SUM (1e-6); the number of value checks, and apart from it
+   the number of calls both comms refuse with one error class, is printed.
+   Then device ms, the host us of a call (through the verb, and of the
+   cached callable alone) and the memory bound of: the f32 SUM
+   allreduce at 1 KB to 64 MB a rank, at 64 MB on Split(r % 2) and the
+   non-uniform Split; bcast, allgather and alltoall at 16 MB total;
+4e. ``dryrun_multichip(8)`` at the JAX configuration on the card (the
+   kernels refuse its head dim of 4, so it asks for the plain attention
+   path by name)
+   against the same dry run on the CPU, within 1e-5 relative;
 5. with ``--profile``: the flagship forward and one training step under
    ``torch.profiler``, the device time of the 20 largest kernels and of
    every flash kernel, and the device's busy share;
@@ -763,6 +779,273 @@ def phase_mesh(card):
     return counts[0]
 
 
+# the communicator phase (4d): mesh_world(8) on the card against the CPU
+COMM_W = 8
+COMM_ELEMS = 257  # elements a row of the parity payloads (a ragged tail)
+COMM_ROOT = 1
+# the ops of the parity matrix and the payloads each takes (USER is a
+# non-commutative user op)
+COMM_OPS = {"SUM": "fib", "PROD": "fib", "MAX": "fib", "MIN": "fib",
+            "LAND": "fib", "LOR": "fib", "BAND": "ib", "MINLOC": "fi",
+            "MAXLOC": "fi", "USER": "fi"}
+COMM_DTYPES = {"f": np.float32, "i": np.int32, "b": np.bool_}
+COMM_OP_VERBS = ("allreduce", "reduce", "reduce_scatter", "scan", "exscan")
+COMM_VERBS = COMM_OP_VERBS + (
+    "bcast", "allgather", "gather", "alltoall", "scatter", "shift",
+    "permute", "cart_shift", "neighbor_allgather", "neighbor_alltoall",
+    "barrier")
+# f32 allreduce bytes a rank (bench.py:138) and the 16 MB total of
+# bench.py:469 for bcast, allgather and alltoall
+COMM_SWEEP = (1 << 10, 1 << 15, 1 << 20, 1 << 24, 1 << 26)
+COMM_VERB_BYTES = 1 << 24
+
+
+def comm_layouts(world):
+    """The communicators of the comm phase, built alike on either world:
+    the world, Split(r % 2) (recursive doubling), the non-uniform
+    Split([0,0,0,1,1,2,3,3]) (the masked ring), a Split with UNDEFINED
+    colours (a ring of 3 and singletons), Create_group([0, 2, 5]), and a
+    2x4 cart, periodic and not, with the open one's Sub."""
+    from ompi_tpu_torch.parallel.mesh import UNDEFINED as U
+
+    cart_open = world.Create_cart([2, 4], [False, False])
+    return {"world": world,
+            "split_r%2": world.Split([r % 2 for r in range(COMM_W)]),
+            "split_nonuniform": world.Split([0, 0, 0, 1, 1, 2, 3, 3]),
+            "split_undefined": world.Split([0, 1, U, 0, 1, U, 0, 1]),
+            "create_group": world.Create_group([0, 2, 5]),
+            "cart_periodic": world.Create_cart([2, 4], [True, True]),
+            "cart_open": cart_open,
+            "cart_sub": cart_open.Sub([False, True])}
+
+
+def comm_payload(rng, shape, dtype, pair=False):
+    """Numpy payload: normals, small ints or bools; pairs are (value with
+    ties, index) in the last dim."""
+    if pair:
+        return np.stack([rng.randint(0, 3, shape), rng.randint(0, 8, shape)],
+                        -1).astype(dtype)
+    if dtype == np.bool_:
+        return rng.rand(*shape) > 0.5
+    if dtype == np.int32:
+        return rng.randint(-4, 5, shape).astype(np.int32)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def comm_cases(comm, verb, ops, rng):
+    """(label, fn(comm, x), x, world float SUM) for each call of ``verb``
+    on ``comm``: every op and payload for the op verbs, every payload for
+    the others. ``ops`` maps an op name to the port's Op."""
+    groups = comm.groups or [range(COMM_W)]
+    sizes = {len(g) for g in groups if len(g) > 1}
+    G = next(iter(sizes)) if len(sizes) == 1 else 2
+    K = 2 * len(comm.topo.dims) if comm.topo is not None else 2
+    blocks = verb in ("alltoall", "reduce_scatter", "scatter")
+    shape = (COMM_W, G if blocks else K, COMM_ELEMS) \
+        if blocks or verb == "neighbor_alltoall" else (COMM_W, COMM_ELEMS)
+    calls = {
+        "allreduce": lambda c, x, o: c.allreduce(x, o),
+        "reduce": lambda c, x, o: c.reduce(x, o, COMM_ROOT),
+        "reduce_scatter": lambda c, x, o: c.reduce_scatter(x, o),
+        "scan": lambda c, x, o: c.scan(x, o),
+        "exscan": lambda c, x, o: c.exscan(x, o),
+        "bcast": lambda c, x: c.bcast(x, COMM_ROOT),
+        "allgather": lambda c, x: c.allgather(x),
+        "gather": lambda c, x: c.gather(x, COMM_ROOT),
+        "alltoall": lambda c, x: c.alltoall(x),
+        "scatter": lambda c, x: c.scatter(x, COMM_ROOT),
+        "shift": lambda c, x: c.shift(x, 1),
+        "permute": lambda c, x: c.permute(x, [(0, 1), (1, 0)]),
+        "cart_shift": lambda c, x: c.cart_shift(x, 1, -1),
+        "neighbor_allgather": lambda c, x: c.neighbor_allgather(x),
+        "neighbor_alltoall": lambda c, x: c.neighbor_alltoall(x),
+        "barrier": lambda c, x: c.barrier(),
+    }[verb]
+    if verb not in COMM_OP_VERBS:
+        for dtype in COMM_DTYPES.values():
+            yield (f"{verb} {dtype.__name__}", calls,
+                   comm_payload(rng, shape, dtype), False)
+        return
+    for name, codes in COMM_OPS.items():
+        pair = name in ("MINLOC", "MAXLOC")
+        for code in codes:
+            dtype = COMM_DTYPES[code]
+            sums = (comm.groups is None and name == "SUM"
+                    and dtype == np.float32 and verb != "scan"
+                    and verb != "exscan")
+            yield (f"{verb} {name} {dtype.__name__}",
+                   lambda c, x, _o=name: calls(c, x, ops[c.device.type][_o]),
+                   comm_payload(rng, shape, dtype, pair), sums)
+
+
+def _comm_run(comm, fn, x):
+    from ompi_tpu_torch.core.errors import MPIError
+
+    try:
+        return fn(comm, comm.shard(x))
+    except MPIError as e:
+        return ("MPIError", e.code)
+
+
+def comm_parity(cpu_world, dev_world, verbs=COMM_VERBS, seed=0) -> int:
+    """Every call of ``verbs`` on every communicator of ``comm_layouts``,
+    on the card's world against the CPU's, on the same numpy payloads:
+    bit-exact (values, sign bits, dtype), except a float SUM over the whole
+    world (allreduce, reduce, reduce_scatter), whose reduction order is the
+    device's own: within 1e-6 of the sum of the magnitudes it adds. A call
+    the CPU comm refuses must raise the same MPI error class on the card.
+    Returns (value checks, matched refusals): a call that both comms refuse
+    with one error class is counted apart, as no parity of values."""
+    from ompi_tpu_torch.core import op as top
+
+    user = top.Op.Create(lambda a, b: a * b + a, commute=False)
+    ops = {t: {n: user if n == "USER" else getattr(top, n) for n in COMM_OPS}
+           for t in ("cpu", "cuda")}
+    rng = np.random.RandomState(seed)
+    cpu_comms, dev_comms = comm_layouts(cpu_world), comm_layouts(dev_world)
+    checks = refusals = 0
+    for lay in cpu_comms:
+        for verb in verbs:
+            for label, fn, x, sums in comm_cases(cpu_comms[lay], verb, ops,
+                                                 rng):
+                want = _comm_run(cpu_comms[lay], fn, x)
+                got = _comm_run(dev_comms[lay], fn, x)
+                what = f"comm parity {lay} {label}"
+                if isinstance(want, tuple):
+                    refusals += 1
+                    require(got == want, f"{what}: card {got}, cpu {want}")
+                    continue
+                checks += 1
+                if want is None:
+                    require(got is None, f"{what}: card {got}, cpu None")
+                    continue
+                require(isinstance(got, torch.Tensor)
+                        and got.device.type == "cuda"
+                        and got.dtype == want.dtype
+                        and got.shape == want.shape,
+                        f"{what}: {type(got)} {getattr(got, 'shape', '')}")
+                got = got.cpu()
+                if sums:
+                    bound = 1e-6 * np.abs(x).sum(0)
+                    err = (got - want).abs().numpy()
+                    require(bool((err <= bound).all()),
+                            f"{what}: max err {err.max():.3e}")
+                    continue
+                require(torch.equal(got, want), f"{what}: values differ")
+                if got.is_floating_point():
+                    require(torch.equal(torch.signbit(got),
+                                        torch.signbit(want)),
+                            f"{what}: signs of zeros differ")
+    # the masked SUM of bcast and scatter on the card: a root's -0.0
+    # arrives as +0.0 (row 0 is a member in both comms), a singleton keeps
+    # its own
+    zeros = np.full((COMM_W, COMM_W, 3), -0.0, np.float32)
+    for lay in ("world", "create_group"):
+        for fn, x in ((lambda c, x: c.bcast(x, COMM_ROOT), zeros[:, 0]),
+                      (lambda c, x: c.scatter(x, COMM_ROOT),
+                       zeros[:, :cpu_comms[lay].size])):
+            want = _comm_run(cpu_comms[lay], fn, x)
+            got = _comm_run(dev_comms[lay], fn, x).cpu()
+            checks += 1
+            require(torch.equal(torch.signbit(got), torch.signbit(want))
+                    and not bool(torch.signbit(want[0]).any()),
+                    f"comm parity {lay}: signed zeros through the masked sum")
+    return checks, refusals
+
+
+def _comm_time(label, x, nbytes, card, **host):
+    """Device ms (CUDA events) of one call of ``host["call"](x)``, the
+    verb, the host us of each named way to make that call, and the memory
+    bound; prints them. ``host["callable"]`` is the cached callable alone,
+    the least any dispatch can cost."""
+    call = host["call"]
+    call(x)  # the first call resolves the callable
+    ms = time_ms(lambda: call(x))
+    us = {k: 1e3 * host_ms(lambda f=f: f(x)) for k, f in host.items()}
+    bound = nbytes / PEAK_BYTES * 1e3
+    print(f"comm {label}: device {ms:.4f} ms, host us a call "
+          + ", ".join(f"{k} {v:.1f}" for k, v in us.items())
+          + f", bound {bound:.4f} ms ({nbytes} bytes read and written) on "
+          f"{card}", flush=True)
+    return dict(ms=ms, bound_ms=bound, **{f"host_us_{k}": v
+                                          for k, v in us.items()})
+
+
+def phase_comm(card):
+    """Phase 4d: the mesh-mode communicator in this process, on the card
+    against the CPU verb by verb, then timed at the sizes the repo's
+    benchmark uses."""
+    from ompi_tpu_torch.coll.mesh import cache_key
+    from ompi_tpu_torch.core.op import SUM
+    from ompi_tpu_torch.parallel.mesh import mesh_world
+
+    t0 = time.perf_counter()
+    cpu, dev = mesh_world(COMM_W, "cpu"), mesh_world(COMM_W)
+    require(dev.device.type == "cuda", "mesh_world() lives on the card")
+    checks, refusals = comm_parity(cpu, dev)
+    print(f"comm parity: {checks} value checks and {refusals} calls both "
+          f"comms refuse alike, of mesh_world({COMM_W}) on the card against "
+          f"mesh_world({COMM_W}, 'cpu') over {len(COMM_VERBS)} verbs and "
+          f"{len(comm_layouts(cpu))} communicators, all passed "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def ways(comm, verb, *args, key=None):
+        """The two ways to call ``verb``: the verb, and the cached callable
+        alone (no coll table, no argument checks)."""
+        return dict(
+            call=lambda a: getattr(comm, verb)(a, *args),
+            callable=lambda a: comm._cache[key or cache_key(verb)](a))
+
+    W, f4 = COMM_W, 4
+    res = {}
+    layouts = comm_layouts(dev)
+    for nbytes in COMM_SWEEP:
+        x = torch.ones((W, nbytes // f4), device="cuda")
+        res[f"allreduce {nbytes}"] = _comm_time(
+            f"allreduce SUM f32 world {nbytes} B a rank", x,
+            2 * x.numel() * f4, card,
+            **ways(dev, "allreduce", SUM, key=cache_key("allreduce", SUM)))
+    for lay in ("split_r%2", "split_nonuniform"):  # at the sweep's 64 MB
+        res[f"allreduce {lay}"] = _comm_time(
+            f"allreduce SUM f32 {lay} {nbytes} B a rank", x,
+            2 * x.numel() * f4, card,
+            **ways(layouts[lay], "allreduce", SUM,
+                   key=cache_key("allreduce", SUM)))
+    del x
+    per_rank = COMM_VERB_BYTES // f4 // W
+    x = torch.ones((W, per_rank), device="cuda")
+    bc = ways(dev, "bcast", 0)
+    bc["callable"] = lambda a: dev._cache[cache_key("bcast")](a, 0)
+    res["bcast"] = _comm_time(
+        f"bcast f32 world {COMM_VERB_BYTES} B total", x,
+        (1 + W) * per_rank * f4, card, **bc)
+    res["allgather"] = _comm_time(
+        f"allgather f32 world {COMM_VERB_BYTES} B total", x,
+        (1 + W) * x.numel() * f4, card, **ways(dev, "allgather"))
+    chunks = torch.ones((W, W, per_rank // W), device="cuda")
+    res["alltoall"] = _comm_time(
+        f"alltoall f32 world {COMM_VERB_BYTES} B total", chunks,
+        2 * chunks.numel() * f4, card, **ways(dev, "alltoall"))
+    return (checks, refusals), res
+
+
+def phase_dryrun(entry_mod, card):
+    """The dry run at the JAX configuration on the card against the CPU's
+    loss. Its head dim of 4 is under the kernels' tile, so the dry run asks
+    for the plain attention path by name: no kernel launches here."""
+    cfg = entry_mod.dryrun_config(8, "cpu")
+    t0 = time.perf_counter()
+    card_loss = entry_mod.dryrun_multichip(8)
+    cpu_loss = entry_mod.dryrun_multichip(8, "cpu")
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"dryrun_multichip(8) at the JAX configuration {cfg}: loss "
+          f"{card_loss:.7f} on the card vs {cpu_loss:.7f} on the CPU "
+          f"(relative {rel:.3e}); {time.perf_counter() - t0:.1f} s for both "
+          f"worlds on {card}", flush=True)
+    require(np.isfinite(card_loss) and rel <= 1e-5,
+            f"dryrun_multichip(8) on the card {card_loss} vs CPU {cpu_loss}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -807,6 +1090,8 @@ def main() -> int:
     serve_counts, tokens = phase_serve(fa, tfm, entry_mod, params, cfg, card)
     train_counts, train_args = phase_train(fa, tfm, params, cfg, card)
     mesh_counts = phase_mesh(card)
+    phase_comm(card)
+    phase_dryrun(entry_mod, card)
 
     # 5. where the time goes
     if args.profile:

@@ -291,7 +291,9 @@ def allreduce_grads(grads: List[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def make_train_step(cfg: Config, device: DeviceLike = None, dp: int = 1,
-                    sp: int = 1, tp: int = 1) -> Tuple[Callable, Callable]:
+                    sp: int = 1, tp: int = 1,
+                    use_flash: Optional[bool] = None
+                    ) -> Tuple[Callable, Callable]:
     """The full training step over the current (dp, sp, tp) mesh: forward,
     backward, the gradient allreduce and the SGD update. Returns
     ``(step, place)`` as the JAX ``make_train_step`` does. ``dp``, ``sp``
@@ -306,7 +308,8 @@ def make_train_step(cfg: Config, device: DeviceLike = None, dp: int = 1,
     same parameter tensors after ``p -= lr * g``, which is applied IN PLACE
     under ``torch.no_grad()`` (JAX returns new arrays; the port saves a
     copy of every parameter). Attention takes the Hopper kernels on the
-    card and the chunked plain path on the CPU.
+    card and the chunked plain path on the CPU; ``use_flash`` is
+    ``ring_attention``'s (False asks for the plain path on the card).
 
     Gradient reduction: parameters are replicated over dp and sp, so each
     gradient is summed over those axes exactly once, here, by one allreduce
@@ -338,7 +341,8 @@ def make_train_step(cfg: Config, device: DeviceLike = None, dp: int = 1,
         return _map(local, lambda t: t.to(dev)), block(tokens), block(targets)
 
     def step(params, tokens, targets):
-        loss, grads = loss_and_grads(params, tokens, targets, cfg)
+        loss, grads = loss_and_grads(params, tokens, targets, cfg,
+                                     use_flash)
         with torch.no_grad():
             for p, g in zip(param_leaves(params), allreduce_grads(grads)):
                 p.sub_(cfg.lr * g)

@@ -13,10 +13,12 @@ relation is a Python bool. Every ring step runs its block pair, "none"
 blocks included, as the JAX ring does.
 
 Each block pair goes through the Hopper flash kernel
-(``ops/flash_attention.py``) whenever the tensors lie on the card; a shape
-the kernel cannot take raises there rather than running plain attention on
-the card. CPU tensors take the chunked plain path, as the JAX package takes
-its lax path off a TPU.
+(``ops/flash_attention.py``) whenever the tensors lie on the card; the
+default route consults ``flash_supported`` (the JAX gate's static shape
+check) and raises on a shape the kernels refuse, rather than running plain
+attention on the card unasked. A caller that wants the plain path on the
+card asks for it by name (``use_flash=False``). CPU tensors take the
+chunked plain path, as the JAX package takes its lax path off a TPU.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from typing import Optional
 
 import torch
 
-from ompi_tpu_torch.ops.flash_attention import flash_block
+from ompi_tpu_torch.ops.flash_attention import (flash_block,
+                                               flash_supported)
 from ompi_tpu_torch.parallel import axes
 
 NEG_BIG = -1e30
@@ -108,11 +111,26 @@ def _one_block(q, k, v, keep_full, keep_tri, sm_scale, mxu_dtype, chunk,
                           chunk)
 
 
-def use_flash_default(q: torch.Tensor) -> bool:
-    """The Hopper kernel for tensors on the card, the chunked plain path for
-    CPU tensors. Unlike the JAX gate this does not consult
-    ``flash_supported``: on the card the kernel runs or raises."""
-    return q.is_cuda
+def flash_default(device_type: str, q_shape, k_shape,
+                  layout: str = "bthd") -> bool:
+    """The default route of a block pair: the Hopper kernels on the card,
+    the chunked plain path off it. On the card a shape that
+    ``flash_supported`` refuses raises: the kernels run or the call fails,
+    and the plain path runs there only where the caller names it."""
+    if device_type != "cuda":
+        return False
+    if not flash_supported(q_shape, k_shape, layout):
+        raise ValueError(
+            f"the flash kernels do not take q{tuple(q_shape)} "
+            f"k{tuple(k_shape)} ({layout}; see flash_supported); pass "
+            "use_flash=False to run plain attention on the card")
+    return True
+
+
+def use_flash_default(q: torch.Tensor, k: torch.Tensor,
+                      layout: str = "bthd") -> bool:
+    """``flash_default`` for the block pair (q, k)."""
+    return flash_default(q.device.type, q.shape, k.shape, layout)
 
 
 def ring_attention(q, k, v, axis_name: str, sp_size: int,
@@ -125,14 +143,15 @@ def ring_attention(q, k, v, axis_name: str, sp_size: int,
     q, k, v: this rank's shards, [B, S/sp, H, D] ('bthd') or
     [B, H, S/sp, D] ('bhtd', the layout the model emits). Returns the local
     output shard in the input layout and dtype. ``use_flash`` None takes the
-    Hopper kernels for CUDA tensors and the chunked path for CPU tensors;
-    True on CPU tensors takes the kernels' plain versions. ``mxu_dtype``
-    and ``chunk`` are the chunked path's.
+    Hopper kernels for CUDA tensors, raising on a shape they refuse, and the
+    chunked path for CPU tensors (``use_flash_default``); True on CPU
+    tensors takes the kernels' plain versions; False takes the chunked path
+    on either device. ``mxu_dtype`` and ``chunk`` are the chunked path's.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if use_flash is None:
-        use_flash = use_flash_default(q)
+        use_flash = use_flash_default(q, k, layout)
     block = lambda k_blk, v_blk, kf, kt: _one_block(
         q, k_blk, v_blk, kf, kt, sm_scale, mxu_dtype, chunk, use_flash,
         layout)

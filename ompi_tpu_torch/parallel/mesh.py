@@ -1,0 +1,333 @@
+"""Mesh-mode communicators: MPI_COMM_WORLD as the rank dim of one tensor.
+
+The port of ``ompi_tpu/parallel/mesh.py``. The model is single-controller,
+as in the JAX package: the controller holds every rank; a distributed
+buffer is one tensor whose leading dim is the rank dim, held on the
+communicator's device (``cuda`` unless the caller names another).
+Sub-communicators (Split / Create_group) are a partition of all positions
+into groups; every collective acts within each group at once, and one comm
+object *is* every colour's communicator, observed from the controller.
+Positions outside any group (Create_group non-members, UNDEFINED colours)
+are padded as singleton groups, which keep their own data.
+
+The collectives are ``coll/mesh.py`` ``MeshColl``'s. Each verb's first call
+per cache key resolves its callable into the comm's ``_cache``; a later
+call is a lookup in the coll table and one in the cache, then the tensor
+ops. (The JAX package keeps a second, "fast" table in front of its cache
+to skip re-checks and ``jit`` lookups; here the callables are generic over
+shape and dtype, so it could save at most the gap between a verb's host
+time and its cached callable's, which ``chip_smoke.py`` phase 4d prints.)
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ompi_tpu_torch.coll import mesh as _mesh
+from ompi_tpu_torch.comm.communicator import UNDEFINED, Intracomm
+from ompi_tpu_torch.core import op as _op
+from ompi_tpu_torch.core.errors import (
+    MPIError,
+    ERR_ARG,
+    ERR_RANK,
+    ERR_UNSUPPORTED_OPERATION,
+)
+from ompi_tpu_torch.core.group import Group
+from ompi_tpu_torch.device import DeviceLike, resolve_device
+
+__all__ = ["MeshComm", "UNDEFINED", "mesh_world"]
+
+_next_mesh_cid = [100]
+
+
+class MeshComm(Intracomm):
+    """A communicator (or a colour family of communicators) over the rank
+    dim of tensors on one device.
+
+    ``groups`` is None for the world comm, else a partition of all
+    positions; collectives act within each group independently.
+    """
+
+    def __init__(self, world_size: int, device: torch.device,
+                 axis: str = "mpi_world",
+                 groups: Optional[Tuple[Tuple[int, ...], ...]] = None,
+                 name: str = ""):
+        self.world_size = int(world_size)
+        self.device = torch.device(device)
+        self.axis = axis
+        if groups is not None:
+            groups = tuple(tuple(int(r) for r in g) for g in groups)
+            flat = sorted(r for g in groups for r in g)
+            if flat != list(range(self.world_size)):
+                raise MPIError(
+                    ERR_ARG,
+                    "groups must partition all mesh positions "
+                    "(pad non-members as singleton groups)",
+                )
+        self.groups = groups
+        # pos_map[position] = rank within its group; singleton_mask marks
+        # padding groups excluded from schedules
+        pos = np.arange(self.world_size, dtype=np.int32)
+        single = np.zeros(self.world_size, dtype=bool)
+        if groups is not None:
+            for g in groups:
+                for p, r in enumerate(g):
+                    pos[r] = p
+                    single[r] = len(g) == 1
+        self.pos_map = pos
+        self.singleton_mask = single
+        cid = _next_mesh_cid[0]
+        _next_mesh_cid[0] += 1
+        super().__init__(Group(range(self.world_size)), cid,
+                         name or f"mesh-comm-{cid}")
+        # cache key -> resolved callable, filled by MeshColl on a miss
+        self._cache = {}
+        self.coll = _mesh.CollTable(_mesh.module)
+
+    # ------------------------------------------------------------- queries
+    @property
+    def size(self) -> int:
+        """Group size: uniform across non-singleton colours (singletons are
+        padding); raises if real colours differ in size."""
+        if self.groups is None:
+            return self.world_size
+        sizes = {len(g) for g in self.groups if len(g) > 1}
+        if not sizes:
+            return 1
+        if len(sizes) != 1:
+            raise MPIError(
+                ERR_UNSUPPORTED_OPERATION,
+                "non-uniform color sizes: split into uniform colors or "
+                "query per-color via .groups",
+            )
+        return next(iter(sizes))
+
+    def Get_rank(self):
+        raise MPIError(
+            ERR_UNSUPPORTED_OPERATION,
+            "the mesh-mode controller holds all ranks; a rank's data is "
+            "row r of the rank dim")
+
+    def _check_root(self, root: int) -> None:
+        # a root is a group-local position; groups smaller than root + 1
+        # have no such member and their rows get zeros
+        if self.groups is None:
+            limit = self.world_size
+        else:
+            limit = max((len(g) for g in self.groups), default=1)
+        if not 0 <= root < limit:
+            raise MPIError(ERR_RANK, f"root {root} out of range")
+
+    # ------------------------------------------------------------ placement
+    def sharding(self) -> torch.device:
+        """Where the comm's distributed buffers live: one tensor on this
+        device, rank dim first."""
+        return self.device
+
+    def shard(self, x) -> torch.Tensor:
+        """A [world, ...] numpy array or tensor as a tensor on the comm's
+        device (numpy input is copied; its dtype is kept)."""
+        t = x.to(self.device) if isinstance(x, torch.Tensor) \
+            else torch.tensor(np.asarray(x), device=self.device)
+        if t.dim() < 1 or t.shape[0] != self.world_size:
+            raise MPIError(ERR_ARG, f"a distributed buffer is [world="
+                                    f"{self.world_size}, ...], got "
+                                    f"{tuple(t.shape)}")
+        return t
+
+    # ------------------------------------------- functional collectives
+    # Each verb is one lookup in the coll table and one in the comm's cache
+    # of resolved callables (``MeshColl._cached``); the callables check the
+    # payload's contracts themselves on every call.
+    def _slot(self, name: str, root: Optional[int] = None):
+        self._check_usable()
+        if root is not None:
+            self._check_root(root)
+        return self.coll[name]
+
+    def allreduce(self, x, op: _op.Op = _op.SUM):
+        return self._slot("allreduce")(self, x, op)
+
+    def reduce(self, x, op: _op.Op = _op.SUM, root: int = 0):
+        return self._slot("reduce", root)(self, x, op, root)
+
+    def bcast(self, x, root: int = 0):
+        return self._slot("bcast", root)(self, x, root)
+
+    def allgather(self, x):
+        return self._slot("allgather")(self, x)
+
+    def alltoall(self, x):
+        return self._slot("alltoall")(self, x)
+
+    def reduce_scatter(self, x, op: _op.Op = _op.SUM):
+        return self._slot("reduce_scatter_block")(self, x, op)
+
+    def scan(self, x, op: _op.Op = _op.SUM):
+        return self._slot("scan")(self, x, op)
+
+    def exscan(self, x, op: _op.Op = _op.SUM):
+        return self._slot("exscan")(self, x, op)
+
+    def barrier(self) -> None:
+        self._slot("barrier")(self)
+
+    def gather(self, x, root: int = 0):
+        return self._slot("gather", root)(self, x, root)
+
+    def scatter(self, x, root: int = 0):
+        return self._slot("scatter", root)(self, x, root)
+
+    # MPI-style aliases
+    Allreduce = allreduce
+    Bcast = bcast
+    Allgather = allgather
+    Alltoall = alltoall
+    Barrier = barrier
+
+    # ------------------------------------------------------------- pt2pt
+    def permute(self, x, perm: Sequence[Tuple[int, int]]):
+        """Tag-free point-to-point: move rows along (src, dst) pairs of comm
+        (group-local) ranks, in every group at once."""
+        if self.groups is None:
+            global_perm = tuple((int(s), int(d)) for s, d in perm)
+        else:
+            # singleton padding groups have no in-group peers to permute
+            global_perm = tuple(
+                (g[int(s)], g[int(d)])
+                for g in self.groups
+                if len(g) > 1
+                for s, d in perm
+            )
+        self._check_usable()
+        return _mesh.module.permute(self, x, global_perm)
+
+    def shift(self, x, steps: int = 1):
+        """Ring shift by ``steps`` within each group (MPI_Sendrecv around a
+        ring)."""
+        n = self.size
+        perm = tuple((i, (i + steps) % n) for i in range(n))
+        return self.permute(x, perm)
+
+    # ------------------------------------------------------------ topology
+    # Cart coordinates are a row-major reshape of the rank dim; shifts are
+    # permutations of its rows, periodic dims wrap around.
+    def Create_cart(self, dims, periods=None, reorder=False) -> "MeshComm":
+        from ompi_tpu_torch.topo import CartTopo
+
+        topo = CartTopo(dims, periods if periods is not None
+                        else [False] * len(dims))
+        if self.groups is not None:
+            raise MPIError(ERR_UNSUPPORTED_OPERATION,
+                           "create the cart from the whole-axis comm")
+        if topo.size != self.world_size:
+            raise MPIError(
+                ERR_ARG,
+                f"mesh cart must cover the whole axis: prod(dims)="
+                f"{topo.size} != {self.world_size} positions")
+        new = MeshComm(self.world_size, self.device, self.axis, None,
+                       name=f"{self.name}-cart")
+        new.topo = topo
+        return new
+
+    def Get_topo(self):
+        """(dims, periods, None): the controller holds every rank, so there is
+        no calling-process coords entry."""
+        t = self._cart()
+        return t.dims, t.periods, None
+
+    def Get_coords(self, rank: int):
+        return self._cart().coords(rank)
+
+    def cart_shift(self, x, direction: int, disp: int = 1):
+        """Data-level MPI_Cart_shift: every row moves ``disp`` steps along
+        ``direction``; rows shifted in from non-periodic edges are zero."""
+        if self.groups is not None:
+            raise MPIError(ERR_UNSUPPORTED_OPERATION,
+                           "cart topologies cover the whole mesh axis")
+        t = self._cart()
+        pairs = []
+        for r in range(self.world_size):
+            _, dst = t.shift(r, direction, disp)
+            if dst >= 0:
+                pairs.append((r, dst))
+        return self.permute(x, tuple(pairs))
+
+    def Sub(self, remain_dims) -> "MeshComm":
+        """MPI_Cart_sub: one Split materializing every sub-cart colour."""
+        from ompi_tpu_torch.topo import attach_sub_cart
+
+        t = self._cart()
+        colors, keys = t.sub_colors(remain_dims)
+        sub = self.Split(colors, keys)
+        attach_sub_cart(sub, t, remain_dims)
+        return sub
+
+    def neighbor_allgather(self, x):
+        """[W, ...] -> [W, K, ...]: slot k holds the k-th cart neighbour's
+        row (zeros off non-periodic edges)."""
+        return self._slot("neighbor_allgather")(self, x)
+
+    def neighbor_alltoall(self, x):
+        """[W, K, ...] -> [W, K, ...]: block k goes to neighbour k."""
+        return self._slot("neighbor_alltoall")(self, x)
+
+    Neighbor_allgather = neighbor_allgather
+    Neighbor_alltoall = neighbor_alltoall
+
+    # ------------------------------------------------------ comm management
+    def Dup(self) -> "MeshComm":
+        new = MeshComm(self.world_size, self.device, self.axis, self.groups,
+                       name=f"{self.name}-dup")
+        self._copy_attrs_to(new)
+        return new
+
+    def Split(self, colors: Sequence[int],
+              keys: Optional[Sequence[int]] = None) -> "MeshComm":
+        """MPI_Comm_split, controller-level: ``colors[i]`` / ``keys[i]`` are
+        rank i's arguments; all colours are materialized at once as the
+        groups partition of the returned comm."""
+        if len(colors) != self.world_size:
+            raise MPIError(ERR_ARG, "need one color per mesh position")
+        keys = list(keys) if keys is not None else [0] * self.world_size
+        by_color = {}
+        for r, (c, k) in enumerate(zip(colors, keys)):
+            by_color.setdefault(c, []).append((k, r))
+        groups: List[Tuple[int, ...]] = []
+        for c, members in sorted(by_color.items(),
+                                 key=lambda kv: (kv[0] == UNDEFINED, kv[0])):
+            members.sort()
+            if c == UNDEFINED:
+                groups.extend((r,) for _, r in members)  # singleton padding
+            else:
+                groups.append(tuple(r for _, r in members))
+        return MeshComm(self.world_size, self.device, self.axis,
+                        tuple(groups), name=f"{self.name}-split")
+
+    def Create_group(self, ranks: Sequence[int]) -> "MeshComm":
+        """Sub-communicator of a rank subset; non-members are padded as
+        singleton groups and keep their own data."""
+        member = set(int(r) for r in ranks)
+        groups = [tuple(int(r) for r in ranks)]
+        groups.extend((r,) for r in range(self.world_size) if r not in member)
+        return MeshComm(self.world_size, self.device, self.axis,
+                        tuple(groups), name=f"{self.name}-sub")
+
+    def Free(self) -> None:
+        self._delete_all_attrs()
+        self._freed = True
+        self._cache.clear()
+        self.coll = None
+
+
+def mesh_world(world_size: int = 8, device: DeviceLike = None,
+               axis_name: str = "mpi_world") -> MeshComm:
+    """The mesh-mode MPI_COMM_WORLD of ``world_size`` ranks, on ``cuda``
+    unless ``device`` names another; raises where CUDA is absent. (The JAX
+    package takes the size from its devices; here one card holds every
+    rank, so the size is an argument.)"""
+    return MeshComm(world_size, resolve_device(device), axis_name,
+                    name="MESH_COMM_WORLD")

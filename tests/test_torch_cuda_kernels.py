@@ -13,22 +13,35 @@ gradient's largest magnitude: both round P and dS to bf16, but values near
 a rounding boundary may round apart after the two sum in other orders, and
 one bf16 ulp is 4e-3 relative. The "none" block gives exact zeros.
 
-The last tests run two ranks that share the card (``parallel.launch``):
-the facts the shared-card transport rests on, and every verb staged
-through host memory, exactly.
+Then two ranks that share the card (``parallel.launch``): the facts the
+shared-card transport rests on, and every verb staged through host memory,
+exactly. Last, the mesh-mode communicator: ``mesh_world(8)`` on the card
+against ``mesh_world(8, "cpu")``, verb by verb, through ``chip_smoke.py``'s
+``comm_parity`` (bit-exact but a world float SUM, 1e-6), and the dry run at
+the JAX configuration on the card against the CPU's loss (1e-5 relative).
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
+from ompi_tpu_torch import entry as tentry
 from ompi_tpu_torch.models import transformer as ttfm
 from ompi_tpu_torch.ops import flash_attention as tfa
 from ompi_tpu_torch.ops import mxu as tmxu
 from ompi_tpu_torch.ops import ring_attention as tra
 from ompi_tpu_torch.parallel import axes as taxes
 from ompi_tpu_torch.parallel.launch import run_world
+from ompi_tpu_torch.parallel.mesh import mesh_world
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(cs)
 
 RELATIONS = {"causal": (False, True), "full": (True, False),
              "none": (False, False)}
@@ -101,7 +114,9 @@ def test_flash_fwd_refuses_what_it_cannot_take(cuda):
 @pytest.mark.cuda
 def test_ring_attention_on_card_launches_the_kernel_or_raises(cuda):
     """On the card ring attention never runs plain attention unasked: a
-    shape the kernel takes launches it, one it cannot take raises."""
+    shape the kernel takes launches it, one it cannot take raises, by
+    default as with ``use_flash=True``; ``use_flash=False`` asks for the
+    plain path by name and launches nothing."""
     q, k, v = _qkv((1, 2, 128, 32), 3, cuda, torch.bfloat16)
     before = tfa.KERNEL_LAUNCHES
     o = tra.ring_attention(q, k, v, "sp", 1, layout="bhtd")
@@ -109,9 +124,18 @@ def test_ring_attention_on_card_launches_the_kernel_or_raises(cuda):
     p = tra.ring_attention(q, k, v, "sp", 1, mxu_dtype=torch.bfloat16,
                            use_flash=False, layout="bhtd")
     torch.testing.assert_close(o.float(), p.float(), atol=2e-2, rtol=2e-2)
-    q = torch.zeros(1, 2, 96, 32, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        tra.ring_attention(q, q, q, "sp", 1, layout="bhtd")
+    q, k, v = _qkv((1, 2, 96, 32), 4, cuda, torch.bfloat16)
+    for use_flash in (None, True):
+        with pytest.raises(ValueError):
+            tra.ring_attention(q, k, v, "sp", 1, use_flash=use_flash,
+                               layout="bhtd")
+    before = tfa.KERNEL_LAUNCHES
+    o = tra.ring_attention(q, k, v, "sp", 1, use_flash=False, layout="bhtd")
+    assert tfa.KERNEL_LAUNCHES == before and o.device.type == "cuda"
+    p = tra.ring_attention(q.cpu(), k.cpu(), v.cpu(), "sp", 1,
+                           layout="bhtd")
+    torch.testing.assert_close(o.cpu().float(), p.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 @pytest.mark.cuda
@@ -301,3 +325,24 @@ def test_staged_verbs_on_the_card_are_exact(cuda):
                 "bcast": xs[1], "shift": xs[1 - r]}
         for name, w in want.items():
             np.testing.assert_array_equal(got[name], w, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("verb", cs.COMM_VERBS)
+def test_mesh_comm_on_the_card_matches_the_cpu(cuda, verb):
+    """Every call of the verb on the world, the Splits (recursive doubling,
+    the non-uniform ring, UNDEFINED colours), Create_group and the carts,
+    for every op and payload: the card's results equal the CPU's."""
+    values, _ = cs.comm_parity(mesh_world(8, "cpu"), mesh_world(8),
+                               (verb,))
+    assert values > 0
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_the_card_at_the_jax_configuration(cuda):
+    """Fault C.1 repaired: the JAX dry run's model (head dim 4, which the
+    kernels refuse) runs on the card through the plain attention path it
+    asks for by name, and gives the CPU's loss."""
+    card = tentry.dryrun_multichip(8)
+    cpu = tentry.dryrun_multichip(8, "cpu")
+    assert np.isfinite(card) and abs(card - cpu) <= 1e-5 * abs(cpu)

@@ -43,7 +43,11 @@ def test_the_scan_sees_a_forbidden_import():
     "ompi_tpu_torch.models.transformer", "ompi_tpu_torch.ops._build",
     "ompi_tpu_torch.ops.flash_attention", "ompi_tpu_torch.ops.mxu",
     "ompi_tpu_torch.ops.ring_attention", "ompi_tpu_torch.ops.softmax_xent",
-    "ompi_tpu_torch.parallel.axes", "ompi_tpu_torch.parallel.launch"])
+    "ompi_tpu_torch.parallel.axes", "ompi_tpu_torch.parallel.launch",
+    "ompi_tpu_torch.core.errors", "ompi_tpu_torch.core.group",
+    "ompi_tpu_torch.core.op", "ompi_tpu_torch.comm.communicator",
+    "ompi_tpu_torch.topo", "ompi_tpu_torch.coll.mesh",
+    "ompi_tpu_torch.parallel.mesh"])
 def test_modules_import_without_building(mod):
     importlib.import_module(mod)
     from ompi_tpu_torch.ops import _build

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from ompi_tpu_torch.ops import flash_attention as tfa
 from ompi_tpu_torch.ops import ring_attention as tra
 from ompi_tpu_torch.parallel import axes as taxes
 from ompi_tpu_torch.parallel.launch import run_world
@@ -122,7 +123,41 @@ def test_flash_route_on_cpu_matches_chunked_path():
 
 def test_cpu_tensors_take_the_plain_path():
     q = torch.zeros(1, 2, 64, 16)
-    assert not tra.use_flash_default(q)
+    assert not tra.use_flash_default(q, q, "bhtd")
+
+
+# (q shape, k shape, layout, whether the kernels take it): the flagship's
+# block, every head-dim and tile refusal of ``flash_supported``, and the
+# JAX dry run's per-rank block (head dim 4, 8 rows)
+GATE_CASES = [
+    ((8, 8, 1024, 128), (8, 8, 1024, 128), "bhtd", True),
+    ((4, 256, 8, 32), (4, 256, 8, 32), "bthd", True),
+    ((1, 256, 1, 128), (1, 1 << 20, 1, 128), "bthd", True),
+    ((2, 96, 4, 64), (2, 96, 4, 64), "bthd", False),
+    ((2, 64, 4, 24), (2, 64, 4, 24), "bthd", False),
+    ((2, 64, 4, 256), (2, 64, 4, 256), "bthd", False),
+    ((2, 4, 128, 8), (2, 4, 128, 8), "bhtd", False),
+    ((1, 2, 64, 64), (1, 2, 32, 64), "bhtd", False),
+    ((2, 4, 8, 4), (2, 4, 8, 4), "bhtd", False),
+]
+
+
+@pytest.mark.parametrize("device_type", ["cuda", "cpu"])
+@pytest.mark.parametrize("q_shape,k_shape,layout,takes", GATE_CASES)
+def test_the_default_route_refuses_what_the_kernels_refuse(
+        device_type, q_shape, k_shape, layout, takes):
+    """On the card the default route takes the kernels exactly where
+    ``flash_supported`` admits the block pair (the JAX gate's shape check,
+    ``ompi_tpu/ops/ring_attention.py:120-133``) and raises where it refuses
+    it, never running plain attention there unasked; off the card it always
+    takes the plain path."""
+    assert tfa.flash_supported(q_shape, k_shape, layout) == takes
+    if device_type == "cuda" and not takes:
+        with pytest.raises(ValueError, match="use_flash=False"):
+            tra.flash_default(device_type, q_shape, k_shape, layout)
+    else:
+        assert tra.flash_default(device_type, q_shape, k_shape, layout) == (
+            device_type == "cuda")
 
 
 def test_sp_size_must_match_the_mesh():

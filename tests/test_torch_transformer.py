@@ -265,18 +265,19 @@ def test_dryrun_multichip_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_dryrun_configs(monkeypatch):
-    """On the CPU the JAX dry run's model exactly; on the card one whose
-    heads and sequence shards the flash kernels take."""
+    """The JAX dry run's model exactly, on the CPU and on the card alike.
+    Its head dim of 4 is one the flash kernels refuse: on the card the
+    default route raises there, so the dry run names the plain path."""
     from ompi_tpu_torch.ops.flash_attention import flash_supported
+    from ompi_tpu_torch.ops.ring_attention import flash_default
 
     cfg = tentry.dryrun_config(8, "cpu")
     assert (cfg.vocab, cfg.d_model, cfg.n_heads, cfg.n_layers, cfg.d_ff,
             cfg.seq_len) == (64, 32, 8, 2, 64, 16)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    card = tentry.dryrun_config(8, "cuda")
-    assert (card.d_model, card.n_heads, card.seq_len) == (128, 8, 128)
+    assert tentry.dryrun_config(8, "cuda") == cfg
     _, sp, tp = tentry._factor(8)
-    shard = (2, card.n_heads // tp, card.seq_len // sp, card.head_dim)
-    assert flash_supported(shard, shard, "bhtd")
-    assert not flash_supported(*[(2, 8 // tp, cfg.seq_len // sp,
-                                  cfg.head_dim)] * 2, "bhtd")
+    shard = (2, cfg.n_heads // tp, cfg.seq_len // sp, cfg.head_dim)
+    assert not flash_supported(shard, shard, "bhtd")
+    with pytest.raises(ValueError):
+        flash_default("cuda", shard, shard, "bhtd")
