@@ -58,6 +58,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    kernels refuse its head dim of 4, so it asks for the plain attention
    path by name)
    against the same dry run on the CPU, within 1e-5 relative;
+4f. the comm's nonblocking, persistent and partitioned verbs, its reshard
+   and the accelerator component, in this process (``mesh_world(8)`` on the
+   card against ``mesh_world(8, "cpu")``): each of the six i-verbs at 64 MB
+   a rank, f32, against the CPU verb (bit-exact but a world float SUM,
+   1e-6) and the card's blocking verb, then again behind a queued
+   ``torch.cuda._sleep`` of 50 ms under ``set_sync_debug_mode("error")``:
+   the call returns before the sleep ends, with no host sync, and
+   ``Test()`` is False; ``Request.Waitall`` over three i-verbs;
+   ``allreduce_init``'s 20 Starts on fresh operands bit-exact to the verb,
+   a Start's host us beside the verb's, a double Start refused, a donated
+   Start writing into its operand; a ring shift of [8, 16, 2^20] f32 in 1,
+   4 and 16 partitions bit-exact to one permute; the four reshard
+   lowerings of a global [8192, 8192] f32 array against the CPU; device ms
+   of each against its bytes bound; the accelerator selecting ``cuda``, a
+   256 MiB H2D/D2H round trip, a bf16 IPC round trip and a 1 GiB device
+   copy beside ``get_mem_bw``;
 5. with ``--profile``: the flagship forward and one training step under
    ``torch.profiler``, the device time of the 20 largest kernels and of
    every flash kernel, and the device's busy share;
@@ -1046,6 +1062,253 @@ def phase_dryrun(entry_mod, card):
             f"dryrun_multichip(8) on the card {card_loss} vs CPU {cpu_loss}")
 
 
+# the nonblocking phase (4f): the verbs at 64 MB a rank, f32
+ASYNC_ELEMS = 16 << 20
+ASYNC_STARTS = 20
+# a sleep queued ahead of an i-verb: at least ASYNC_SLEEP_MIN_MS on the card
+ASYNC_SLEEP_MS, ASYNC_SLEEP_MIN_MS = 50.0, 20.0
+PART_SHAPE = (COMM_W, 16, 1 << 20)  # 64 MiB a rank
+PART_COUNTS = (1, 4, 16)
+RESHARD_N = 8192  # the global [N, N] f32 array: 32 MiB a rank sharded
+RESHARD_LOWERINGS = (((0, None), (None, 0)), ((None, 0), (0, None)),
+                     ((None, None), (0, None)), ((0, None), (None, None)))
+ACCEL_BYTES = 256 << 20
+ACCEL_COPY_BYTES = 1 << 30
+
+
+def _close(got, want, sums, what):
+    """The card's result against the CPU's: bit-exact (values, sign bits,
+    dtype), or for a world float SUM within 1e-6 of the summed magnitudes
+    ``sums``."""
+    got = got.cpu()
+    require(got.dtype == want.dtype and got.shape == want.shape,
+            f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+            f"{tuple(want.shape)}")
+    if sums is not None:
+        err = (got - want).abs()
+        require(bool((err <= 1e-6 * sums).all()),
+                f"{what}: max err {float(err.max()):.3e}")
+        return
+    require(torch.equal(got, want) and torch.equal(torch.signbit(got),
+                                                   torch.signbit(want)),
+            f"{what}: values differ")
+
+
+def _sleep_cycles(ms: float) -> int:
+    """``torch.cuda._sleep`` cycles that keep the card busy about ``ms``."""
+    n = 1 << 22
+    ms_n = time_ms(lambda: torch.cuda._sleep(n), iters=3, warmup=1)
+    return int(n * ms / ms_n)
+
+
+def _shard_rows(full, spec, W):
+    """The [W, *local] buffer of the global ``full`` under ``spec``: row r
+    holds rank r's block of the dim that ``spec`` shards, or all of it."""
+    if all(s is None for s in spec):
+        return full.expand((W,) + tuple(full.shape)).contiguous()
+    return torch.stack(full.chunk(W, spec.index(0)))
+
+
+def phase_async(card):
+    """Phase 4f: the mesh comm's nonblocking, persistent and partitioned
+    verbs and its reshard, on the card against the CPU comm, with device
+    ms against the memory bound; then the accelerator component."""
+    from ompi_tpu_torch.accelerator import get_module
+    from ompi_tpu_torch.coll import persist
+    from ompi_tpu_torch.core.errors import MPIError, ERR_REQUEST
+    from ompi_tpu_torch.core.op import SUM
+    from ompi_tpu_torch.core.request import Request
+    from ompi_tpu_torch.parallel.mesh import mesh_world
+
+    W, f4 = COMM_W, 4
+    cpu, dev = mesh_world(W, "cpu"), mesh_world(W)
+    gen = torch.Generator().manual_seed(7)
+    flat_c = torch.randn((W, ASYNC_ELEMS), generator=gen)
+    blocks_c = flat_c.view(W, W, ASYNC_ELEMS // W)
+    flat_d, blocks_d = flat_c.cuda(), blocks_c.cuda()
+    sums = flat_c.abs().sum(0)
+    # (verb, arguments after x, CPU input, card input, world float SUM)
+    cases = (("allreduce", (), flat_c, flat_d, sums),
+             ("bcast", (COMM_ROOT,), flat_c, flat_d, None),
+             ("reduce", (SUM, COMM_ROOT), flat_c, flat_d, sums),
+             ("allgather", (), flat_c, flat_d, None),
+             ("alltoall", (), blocks_c, blocks_d, None),
+             ("reduce_scatter", (), blocks_c, blocks_d,
+              blocks_c.abs().sum(0)))
+    cycles = _sleep_cycles(ASYNC_SLEEP_MS)
+    for verb, args, x_c, x_d, s in cases:
+        want = getattr(cpu, verb)(x_c, *args)
+        ifn = getattr(dev, "i" + verb)
+        first = ifn(x_d, *args)  # builds the callable and warms the memory
+        first.Wait()
+        _close(first.result, want, s, f"i{verb} 64 MB a rank vs the CPU")
+        require(torch.equal(first.result, getattr(dev, verb)(x_d, *args)),
+                f"i{verb} vs the blocking verb on the card")
+        # asynchrony: the verb is enqueued behind a sleep and returns before
+        # the card reaches it; any host sync in its callable raises here
+        torch.cuda.synchronize()
+        t_sleep = torch.cuda.Event(enable_timing=True)
+        t_woke = torch.cuda.Event(enable_timing=True)
+        t_sleep.record()
+        torch.cuda._sleep(cycles)
+        t_woke.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            req = ifn(x_d, *args)
+            call_ms = 1e3 * (time.perf_counter() - t0)
+            pending = not req.Test()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        req.Wait()
+        sleep_ms = t_sleep.elapsed_time(t_woke)
+        print(f"async i{verb}: the call {call_ms:.3f} host ms behind "
+              f"{sleep_ms:.3f} ms of queued sleep, Test() "
+              f"{not pending} right after it, no host sync", flush=True)
+        require(sleep_ms >= ASYNC_SLEEP_MIN_MS and call_ms < sleep_ms
+                and pending, f"i{verb} returns before the card runs it")
+        require(torch.equal(req.result, first.result),
+                f"i{verb} after the sleep")
+        del first, req, want
+    reqs = [dev.iallreduce(flat_d), dev.iallgather(flat_d),
+            dev.ireduce_scatter(blocks_d)]
+    Request.Waitall(reqs)
+    for req, (verb, _, x_c, _, s) in zip(reqs, (cases[0], cases[3],
+                                                cases[5])):
+        _close(req.result, getattr(cpu, verb)(x_c), s,
+               f"Waitall's i{verb}")
+    del reqs
+
+    # persistent: Start/Wait on fresh operands against the verb
+    gen_d = torch.Generator("cuda").manual_seed(8)
+    fresh = lambda: torch.randn((W, ASYNC_ELEMS), device="cuda",  # noqa
+                                generator=gen_d)
+    req = dev.allreduce_init(flat_d)
+    require(req._frozen, "allreduce_init freezes the callable")
+    starts, us0 = persist.starts, persist.replay_us
+    for _ in range(ASYNC_STARTS):
+        x = fresh()
+        req.Start(x)
+        req.Wait()
+        require(torch.equal(req.result, dev.allreduce(x)),
+                "allreduce_init's Start vs the verb")
+    start_us = (persist.replay_us - us0) / (persist.starts - starts)
+    verb_us = 1e3 * host_ms(lambda: dev.allreduce(x))
+    start_ms = time_ms(lambda: req.Start(x).Wait())
+    print(f"persistent allreduce_init 64 MB a rank: {ASYNC_STARTS} "
+          f"Start/Wait bit-exact to the verb; host us a Start "
+          f"{start_us:.1f}, a verb call {verb_us:.1f}; ms a Start and its "
+          f"Wait {start_ms:.4f} on {card}", flush=True)
+    req.Start(x)
+    try:
+        req.Start(x)
+        refused = None
+    except MPIError as e:
+        refused = e.code
+    req.Wait()
+    require(refused == ERR_REQUEST, f"double Start raises ({refused})")
+    persist.donate = 1
+    try:
+        x0 = flat_d.clone()
+        req = dev.allreduce_init(x0)
+        x = fresh()
+        want = dev.allreduce(x)
+        req.Start(x)
+        req.Wait()
+        require(req.result.data_ptr() == x.data_ptr()
+                and torch.equal(req.result, want),
+                "a donated Start writes the result into its operand")
+        donated_ms = time_ms(lambda: req.Start(x).Wait())
+        req.Start()
+        req.Wait()
+        require(torch.equal(req.result, dev.allreduce(flat_d))
+                and torch.equal(x0, flat_d),
+                "an operand-less restart runs on the init operand")
+    finally:
+        persist.donate = 0
+    print(f"persistent donated Start 64 MB a rank: the result in the "
+          f"operand's storage; ms a Start and its Wait {donated_ms:.4f} "
+          f"(the copy into the operand included) on {card}", flush=True)
+    del req, x, x0, want
+
+    # partitioned: a ring shift of [8, 16, 2^20] in 1, 4 and 16 segments
+    ring = tuple((i, (i + 1) % W) for i in range(W))
+    xp_c = torch.randn(PART_SHAPE, generator=gen)
+    xp_d = xp_c.cuda()
+    whole = dev.permute(xp_d, ring)
+    _close(whole, cpu.permute(xp_c, ring), None, "permute vs the CPU")
+    nbytes = 2 * xp_d.numel() * f4
+    bound = nbytes / PEAK_BYTES * 1e3
+    for parts in PART_COUNTS:
+        req = dev.Psend_init(xp_d, ring, parts)
+
+        def run(req=req, parts=parts):
+            req.Start()
+            req.Pready_range(0, parts - 1)
+            return req.Wait()
+
+        require(torch.equal(run(), whole),
+                f"{parts} partitions vs one permute")
+        ms = time_ms(run)
+        print(f"partitioned ring shift {list(PART_SHAPE)} f32, {parts} "
+              f"partitions: device {ms:.4f} ms (Start to Wait), bound "
+              f"{bound:.4f} ms ({nbytes} bytes read and written) on {card}",
+              flush=True)
+    del xp_c, xp_d, whole, req
+
+    # reshard: the four lowerings of a global [8192, 8192] f32 array
+    full = torch.randn((RESHARD_N, RESHARD_N), generator=gen)
+    for src, dst in RESHARD_LOWERINGS:
+        x_c = _shard_rows(full, src, W)
+        x_d = x_c.cuda()
+        got = dev.reshard(x_d, src, dst)
+        want = cpu.reshard(x_c, src, dst)
+        _close(got, want, None, f"reshard {src} -> {dst} vs the CPU")
+        require(torch.equal(want, _shard_rows(full, dst, W)),
+                f"reshard {src} -> {dst} on the CPU")
+        # inputs a row needs read once, the output written once
+        sharded = any(d is not None for d in src)
+        nbytes = got.numel() * f4 + (x_d.numel() if sharded
+                                     else got.numel()) * f4
+        ms = time_ms(lambda: dev.reshard(x_d, src, dst))
+        print(f"reshard {src} -> {dst} of [{RESHARD_N}, {RESHARD_N}] f32: "
+              f"device {ms:.4f} ms, bound {nbytes / PEAK_BYTES * 1e3:.4f} "
+              f"ms ({nbytes} bytes) on {card}", flush=True)
+        del x_c, x_d, got, want
+    del full
+
+    # the accelerator component
+    mod = get_module()
+    require(mod.NAME == "cuda", f"the cuda component is selected "
+                                f"({mod.NAME})")
+    require(mod.check_addr(torch.ones(1, device="cuda"))
+            and not mod.check_addr(torch.ones(1)), "check_addr")
+    host = torch.randn(ACCEL_BYTES // f4, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = mod.mem_copy_to_device(host)
+    mod.synchronize(on_card)
+    t1 = time.perf_counter()
+    back = mod.mem_copy_to_host(on_card)
+    t2 = time.perf_counter()
+    require(torch.equal(back, host), "a 256 MiB H2D/D2H round trip")
+    bf = torch.randn((1024, 1000), device="cuda").bfloat16()
+    ipc = mod.open_ipc_handle(mod.get_ipc_handle(bf))
+    require(ipc.is_cuda and ipc.dtype == torch.bfloat16
+            and torch.equal(ipc, bf), "an IPC round trip in bf16")
+    src = mod.mem_alloc(ACCEL_COPY_BYTES)
+    dst = mod.mem_alloc(ACCEL_COPY_BYTES)
+    copy_ms = time_ms(lambda: dst.copy_(src))
+    print(f"accelerator {mod.NAME}: H2D {ACCEL_BYTES / (t1 - t0) / 1e9:.2f}"
+          f" GB/s, D2H {ACCEL_BYTES / (t2 - t1) / 1e9:.2f} GB/s (256 MiB, "
+          f"pageable, host clock); get_mem_bw {mod.get_mem_bw():.0f} GB/s, "
+          f"a 1 GiB device copy {copy_ms:.4f} ms = "
+          f"{2 * ACCEL_COPY_BYTES / copy_ms / 1e6:.0f} GB/s read and "
+          f"written on {card}", flush=True)
+    mod.mem_release(src)
+    mod.mem_release(dst)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1092,6 +1355,7 @@ def main() -> int:
     mesh_counts = phase_mesh(card)
     phase_comm(card)
     phase_dryrun(entry_mod, card)
+    phase_async(card)
 
     # 5. where the time goes
     if args.profile:

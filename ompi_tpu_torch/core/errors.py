@@ -1,8 +1,9 @@
 """MPI error classes, the exception type and the error handlers.
 
 The port's copy of the part of ``ompi_tpu/core/errors.py`` that the
-mesh-mode communicator raises or carries. Error classes are the stable
-integers of ``mpi.h``; the verbs raise ``MPIError`` with the class.
+mesh-mode communicator and its requests raise or carry. Error classes are
+the stable integers of ``mpi.h``; the verbs raise ``MPIError`` with the
+class.
 """
 
 from __future__ import annotations
@@ -11,10 +12,12 @@ from typing import Callable
 
 SUCCESS = 0
 ERR_RANK = 6
+ERR_REQUEST = 7
 ERR_GROUP = 9
 ERR_OP = 10
 ERR_TOPOLOGY = 11
 ERR_ARG = 13
+ERR_PENDING = 19
 ERR_UNSUPPORTED_OPERATION = 63
 # ULFM (MPIX_ERR_REVOKED): an operation on a revoked communicator
 ERR_REVOKED = 77
@@ -22,10 +25,12 @@ ERR_REVOKED = 77
 _ERROR_STRINGS = {
     SUCCESS: "MPI_SUCCESS: no error",
     ERR_RANK: "MPI_ERR_RANK: invalid rank",
+    ERR_REQUEST: "MPI_ERR_REQUEST: invalid request",
     ERR_GROUP: "MPI_ERR_GROUP: invalid group",
     ERR_OP: "MPI_ERR_OP: invalid reduce operation",
     ERR_TOPOLOGY: "MPI_ERR_TOPOLOGY: invalid communicator topology",
     ERR_ARG: "MPI_ERR_ARG: invalid argument",
+    ERR_PENDING: "MPI_ERR_PENDING: pending request",
     ERR_UNSUPPORTED_OPERATION: "MPI_ERR_UNSUPPORTED_OPERATION",
     ERR_REVOKED: "MPIX_ERR_REVOKED: communicator revoked",
 }

@@ -48,6 +48,8 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from ompi_tpu_torch.device import resolve_device
+
 AxisName = Union[str, Tuple[str, ...]]
 AXES = ("dp", "sp", "tp")
 # the axis tuples that get a process group besides the single axes
@@ -89,14 +91,15 @@ def init_mesh(dp: int, sp: int, tp: int,
               device: Union[str, torch.device, None] = None) -> Mesh:
     """Build the (dp, sp, tp) mesh over the initialised world and make it
     current. Every rank must call it with the same arguments. ``device`` is
-    where this rank's tensors live (the CPU by default); every group takes
-    the world's backend."""
+    where this rank's tensors live: ``cuda`` unless the caller names another,
+    and an error where CUDA is absent (``device.resolve_device``); every
+    group takes the world's backend."""
     global _MESH
     world = dist.get_world_size()
     if dp * sp * tp != world:
         raise ValueError(f"mesh {dp}x{sp}x{tp} does not cover a world of "
                          f"{world} ranks")
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     backend = dist.get_backend()
     shape = dict(zip(AXES, (dp, sp, tp)))
     r = dist.get_rank()

@@ -17,6 +17,11 @@ ops. (The JAX package keeps a second, "fast" table in front of its cache
 to skip re-checks and ``jit`` lookups; here the callables are generic over
 shape and dtype, so it could save at most the gap between a verb's host
 time and its cached callable's, which ``chip_smoke.py`` phase 4d prints.)
+
+Beside the blocking verbs: the nonblocking ones (``iallreduce`` and the
+rest, whose requests complete on a CUDA event), the persistent ones
+(``allreduce_init`` and the rest, which freeze the cached callable into
+the request), partitioned transfers (``Psend_init``) and ``reshard``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch.coll import mesh as _mesh
+from ompi_tpu_torch.coll import persist as _persist
+from ompi_tpu_torch.coll.mesh import cache_key
+from ompi_tpu_torch.coll.sched import DeviceRequest, MeshPersistentRequest
 from ompi_tpu_torch.comm.communicator import UNDEFINED, Intracomm
 from ompi_tpu_torch.core import op as _op
 from ompi_tpu_torch.core.errors import (
@@ -36,7 +44,10 @@ from ompi_tpu_torch.core.errors import (
     ERR_UNSUPPORTED_OPERATION,
 )
 from ompi_tpu_torch.core.group import Group
+from ompi_tpu_torch.core.request import CompletedRequest
 from ompi_tpu_torch.device import DeviceLike, resolve_device
+from ompi_tpu_torch.parallel.partitioned import MeshPartitionedRequest
+from ompi_tpu_torch.reshard.exec import mesh_reshard
 
 __all__ = ["MeshComm", "UNDEFINED", "mesh_world"]
 
@@ -188,6 +199,119 @@ class MeshComm(Intracomm):
     Alltoall = alltoall
     Barrier = barrier
 
+    # ------------------------------------ nonblocking collectives (MPI_I*)
+    # A verb enqueues its tensor ops on the current CUDA stream and returns
+    # before the device runs them; the I* verb surfaces that as a request
+    # whose ``result`` holds the output tensor and which completes when the
+    # device has run the verb (``coll/sched.py`` ``DeviceRequest``).
+    def iallreduce(self, x, op: _op.Op = _op.SUM):
+        return DeviceRequest(self.allreduce(x, op))
+
+    def ibcast(self, x, root: int = 0):
+        return DeviceRequest(self.bcast(x, root))
+
+    def ireduce(self, x, op: _op.Op = _op.SUM, root: int = 0):
+        return DeviceRequest(self.reduce(x, op, root))
+
+    def iallgather(self, x):
+        return DeviceRequest(self.allgather(x))
+
+    def ialltoall(self, x):
+        return DeviceRequest(self.alltoall(x))
+
+    def ireduce_scatter(self, x, op: _op.Op = _op.SUM):
+        return DeviceRequest(self.reduce_scatter(x, op))
+
+    def ibarrier(self):
+        """The barrier waits for the device, so it is complete when it
+        returns."""
+        self.barrier()
+        return CompletedRequest()
+
+    # ------------------------------------ persistent collectives (X_init)
+    # Init runs the verb once, which builds and caches its callable; with
+    # ``persist.enable`` it then freezes that callable into the request, so
+    # a Start is the callable alone: no coll-table or cache lookup. The
+    # comm's usability is still checked at every Start. With
+    # ``persist.donate`` a Start with a fresh operand writes the result
+    # into it (reference: ompi/mca/coll/coll.h:545-620).
+    def _pcoll_init(self, verb: str, x, *args, key=None, bind=()):
+        fn = getattr(self, verb)
+        fn(x, *args)  # warm-up: the callable is built and cached now
+        frozen = None
+        if key is not None and _persist.enable:
+            f = self._cache[key]
+            frozen = (lambda a, _f=f, _b=bind: _f(a, *_b)) if bind else f
+        donate = None
+        if frozen is not None:
+            _persist.plans += 1
+            dispatch = frozen
+            if _persist.donate:
+                donate = lambda a, _f=frozen: _donated(_f, a)  # noqa: E731
+        else:
+            dispatch = lambda a: fn(a, *args)  # noqa: E731
+        return MeshPersistentRequest(self, dispatch, x,
+                                     frozen=frozen is not None,
+                                     donate=donate)
+
+    @staticmethod
+    def _op_key(op: _op.Op, key):
+        """The cache key to freeze for an op verb, or None: pair ops
+        (MINLOC/MAXLOC) keep the per-Start verb, as in the reference."""
+        return None if op.is_pair else key
+
+    def allreduce_init(self, x, op: _op.Op = _op.SUM):
+        return self._pcoll_init("allreduce", x, op, key=self._op_key(
+            op, cache_key("allreduce", op)))
+
+    def bcast_init(self, x, root: int = 0):
+        return self._pcoll_init("bcast", x, root, key=cache_key("bcast"),
+                                bind=(root,))
+
+    def reduce_init(self, x, op: _op.Op = _op.SUM, root: int = 0):
+        # the mesh reduce is the allreduce on every row: its callable
+        return self._pcoll_init("reduce", x, op, root, key=self._op_key(
+            op, cache_key("allreduce", op)))
+
+    def allgather_init(self, x):
+        return self._pcoll_init("allgather", x, key=cache_key("allgather"))
+
+    def alltoall_init(self, x):
+        return self._pcoll_init("alltoall", x, key=cache_key("alltoall"))
+
+    def reduce_scatter_init(self, x, op: _op.Op = _op.SUM):
+        return self._pcoll_init("reduce_scatter", x, op, key=self._op_key(
+            op, cache_key("reduce_scatter_block", op)))
+
+    def scan_init(self, x, op: _op.Op = _op.SUM):
+        return self._pcoll_init("scan", x, op, key=self._op_key(
+            op, cache_key("scan", op, (False,))))
+
+    def exscan_init(self, x, op: _op.Op = _op.SUM):
+        return self._pcoll_init("exscan", x, op, key=self._op_key(
+            op, cache_key("scan", op, (True,))))
+
+    Allreduce_init = allreduce_init
+    Bcast_init = bcast_init
+    Reduce_init = reduce_init
+    Allgather_init = allgather_init
+    Alltoall_init = alltoall_init
+    Reduce_scatter_init = reduce_scatter_init
+    Reduce_scatter_block_init = reduce_scatter_init  # ProcComm's spelling
+    Scan_init = scan_init
+    Exscan_init = exscan_init
+
+    # ---------------------------------------- partitioned pt2pt (MPI-4)
+    def Psend_init(self, x, perm: Sequence[Tuple[int, int]],
+                   partitions: int) -> MeshPartitionedRequest:
+        """Partitioned transfer of a ``[W, K, ...]`` buffer: K split into
+        ``partitions`` segments, each permuted when it is made ready
+        (reference: part.h:163; see ``parallel/partitioned.py``)."""
+        return MeshPartitionedRequest(self, x, perm, partitions)
+
+    # the controller holds both ends: one request serves the pair
+    Precv_init = Psend_init
+
     # ------------------------------------------------------------- pt2pt
     def permute(self, x, perm: Sequence[Tuple[int, int]]):
         """Tag-free point-to-point: move rows along (src, dst) pairs of comm
@@ -211,6 +335,13 @@ class MeshComm(Intracomm):
         n = self.size
         perm = tuple((i, (i + steps) % n) for i in range(n))
         return self.permute(x, perm)
+
+    # ---------------------------------------------------------- resharding
+    def reshard(self, x, src_spec, dst_spec):
+        """Redistribute the ``[W, *local]`` buffer between layouts by one
+        verb: allgather, alltoall or local slicing (``reshard/exec.py``
+        ``mesh_reshard``). Each call derives the lowering anew."""
+        return mesh_reshard(self, x, src_spec, dst_spec)
 
     # ------------------------------------------------------------ topology
     # Cart coordinates are a row-major reshape of the rank dim; shifts are
@@ -321,6 +452,16 @@ class MeshComm(Intracomm):
         self._freed = True
         self._cache.clear()
         self.coll = None
+
+
+def _donated(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)``, written into ``x``'s storage where it has ``x``'s shape
+    and dtype; else ``fn(x)`` as it is, ``x`` untouched. XLA likewise reuses
+    a donated buffer only for an output of its shape and dtype."""
+    out = fn(x)
+    if out.shape == x.shape and out.dtype == x.dtype:
+        return x.copy_(out)
+    return out
 
 
 def mesh_world(world_size: int = 8, device: DeviceLike = None,

@@ -132,6 +132,14 @@ def _rank_hang():
     return True
 
 
+def _rank_default_device():
+    """``init_mesh`` with no device: where the mesh lives, or the error."""
+    try:
+        return str(taxes.init_mesh(1, 1, 1).device)
+    except RuntimeError as e:
+        return f"raised: {e}"
+
+
 # ------------------------------------------------------------ fixtures
 
 
@@ -294,3 +302,14 @@ def test_transport_follows_the_ranks_devices(device_type, ids, want):
 
 def test_the_mesh_takes_the_worlds_backend(world):
     assert all(res[4] == "gloo" for res in world[2])
+
+
+def test_init_mesh_without_a_device_is_on_the_card():
+    """Fault C.2: like every entry point of the port, ``init_mesh`` resolves
+    no device to ``cuda`` and raises ``resolve_device``'s error where there
+    is no card; it never drops to the CPU unasked."""
+    [got] = run_world(_rank_default_device, 1, "cpu", timeout=120.0)
+    if torch.cuda.is_available():
+        assert got == "cuda"
+    else:
+        assert got.startswith("raised: ") and "device='cpu'" in got, got

@@ -18,7 +18,10 @@ shared-card transport rests on, and every verb staged through host memory,
 exactly. Last, the mesh-mode communicator: ``mesh_world(8)`` on the card
 against ``mesh_world(8, "cpu")``, verb by verb, through ``chip_smoke.py``'s
 ``comm_parity`` (bit-exact but a world float SUM, 1e-6), and the dry run at
-the JAX configuration on the card against the CPU's loss (1e-5 relative).
+the JAX configuration on the card against the CPU's loss (1e-5 relative),
+and the comm's nonblocking and persistent verbs and the accelerator
+component on the card: each i-verb returns behind queued device work with
+no host sync, its request pending until the device has run it.
 """
 
 import importlib.util
@@ -346,3 +349,94 @@ def test_dryrun_multichip_on_the_card_at_the_jax_configuration(cuda):
     card = tentry.dryrun_multichip(8)
     cpu = tentry.dryrun_multichip(8, "cpu")
     assert np.isfinite(card) and abs(card - cpu) <= 1e-5 * abs(cpu)
+
+
+I_VERBS = {"allreduce": (), "bcast": (1,), "reduce": (None, 1),
+           "allgather": (), "alltoall": (), "reduce_scatter": ()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("verb", sorted(I_VERBS))
+def test_i_verb_on_the_card_returns_before_the_device_runs_it(cuda, verb):
+    """Behind 30 ms of queued sleep the i-verb returns at once, with no
+    host sync in its callable (``set_sync_debug_mode("error")`` raises on
+    one), and its request is pending until the device has run it; the
+    result then equals the CPU comm's (a world float SUM within 1e-6 of
+    the summed magnitudes)."""
+    from ompi_tpu_torch.core.op import SUM
+
+    cpu, dev = mesh_world(8, "cpu"), mesh_world(8)
+    x = torch.randn((8, 8, 1 << 14), generator=torch.Generator()
+                    .manual_seed(3))
+    if verb in ("allreduce", "bcast", "reduce", "allgather"):
+        x = x.reshape(8, -1)
+    args = tuple(SUM if a is None else a for a in I_VERBS[verb])
+    want = getattr(cpu, verb)(x, *args)
+    ifn = getattr(dev, "i" + verb)
+    ifn(x.cuda(), *args).Wait()  # the callable is built and cached
+    x_d = x.cuda()
+    cycles = cs._sleep_cycles(30.0)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        req = ifn(x_d, *args)
+        pending = not req.Test()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pending
+    req.Wait()
+    assert req.Test()
+    got = req.result.cpu()
+    if verb in ("allreduce", "reduce", "reduce_scatter"):
+        assert bool(((got - want).abs() <= 1e-6 * x.abs().sum(0)).all())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_persistent_verbs_on_the_card(cuda, monkeypatch):
+    """allreduce_init freezes its callable; Starts on fresh operands equal
+    the verb; a donated Start leaves the result in its operand."""
+    from ompi_tpu_torch.coll import persist
+
+    dev = mesh_world(8)
+    x0 = torch.randn((8, 4096), device="cuda")
+    req = dev.allreduce_init(x0)
+    assert req._frozen
+    for _ in range(3):
+        x = torch.randn((8, 4096), device="cuda")
+        req.Start(x)
+        req.Wait()
+        assert torch.equal(req.result, dev.allreduce(x))
+    monkeypatch.setattr(persist, "donate", 1)
+    req = dev.allreduce_init(x0)
+    x = torch.randn((8, 4096), device="cuda")
+    want = dev.allreduce(x)
+    req.Start(x)
+    req.Wait()
+    assert req.result.data_ptr() == x.data_ptr()
+    assert torch.equal(req.result, want)
+
+
+@pytest.mark.cuda
+def test_accelerator_on_the_card_selects_cuda(cuda):
+    from ompi_tpu_torch.accelerator import base, get_module
+    from ompi_tpu_torch.runtime.topology import accelerators
+
+    base._reset_selection()
+    mod = get_module()
+    assert mod.NAME == "cuda" and mod.num_devices() >= 1
+    t = torch.randn((64, 33), device="cuda").bfloat16()
+    assert mod.check_addr(t) and not mod.check_addr(t.cpu())
+    back = mod.open_ipc_handle(mod.get_ipc_handle(t))
+    assert back.is_cuda and torch.equal(back, t)
+    assert mod.get_device(t) == t.device.index
+    assert mod.device_can_access_peer(0, 0)
+    assert mod.get_mem_bw() > 0
+    buf = mod.mem_alloc(1 << 20)
+    assert mod.check_addr(buf) and buf.numel() == 1 << 20
+    mod.mem_release(buf)
+    assert [d["kind"] for d in accelerators()] == [
+        torch.cuda.get_device_name(i)
+        for i in range(torch.cuda.device_count())]

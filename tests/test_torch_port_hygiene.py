@@ -47,7 +47,12 @@ def test_the_scan_sees_a_forbidden_import():
     "ompi_tpu_torch.core.errors", "ompi_tpu_torch.core.group",
     "ompi_tpu_torch.core.op", "ompi_tpu_torch.comm.communicator",
     "ompi_tpu_torch.topo", "ompi_tpu_torch.coll.mesh",
-    "ompi_tpu_torch.parallel.mesh"])
+    "ompi_tpu_torch.parallel.mesh", "ompi_tpu_torch.core.status",
+    "ompi_tpu_torch.core.request", "ompi_tpu_torch.coll.persist",
+    "ompi_tpu_torch.coll.sched", "ompi_tpu_torch.parallel.partitioned",
+    "ompi_tpu_torch.reshard.exec", "ompi_tpu_torch.accelerator",
+    "ompi_tpu_torch.accelerator.base", "ompi_tpu_torch.accelerator.cuda",
+    "ompi_tpu_torch.runtime.topology", "ompi_tpu_torch.tools.info"])
 def test_modules_import_without_building(mod):
     importlib.import_module(mod)
     from ompi_tpu_torch.ops import _build

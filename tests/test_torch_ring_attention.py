@@ -186,7 +186,7 @@ def _rank_ring():
     r = torch.distributed.get_rank()
     out = []
     for sp in (2, 4, 8):
-        taxes.init_mesh(8 // sp, sp, 1)
+        taxes.init_mesh(8 // sp, sp, 1, device="cpu")
         for case in (c for c in RING_CASES if c[0] == sp):
             _, causal, layout, route = case
             q, k, v, g = (torch.from_numpy(x) for x in _ring_inputs(case))

@@ -209,7 +209,7 @@ def test_step_layout_must_match_the_mesh():
 def _rank_layout(params_np, toks, tgts, layout, remat=False):
     """First-step loss and reduced, tp-gathered gradients, then STEPS losses
     and the gathered final parameters, at ``layout``."""
-    taxes.init_mesh(*layout)
+    taxes.init_mesh(*layout, device="cpu")
     cfg = ttfm.Config(**SHAPE, remat=remat)
     specs = ttfm.param_leaves(ttfm.param_specs(cfg))
     step, place = ttfm.make_train_step(cfg, "cpu", *layout)
