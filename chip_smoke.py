@@ -74,6 +74,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    of each against its bytes bound; the accelerator selecting ``cuda``, a
    256 MiB H2D/D2H round trip, a bf16 IPC round trip and a 1 GiB device
    copy beside ``get_mem_bw``;
+4g. the quantized allreduce, the mesh window, the multi-slice comm and the
+   checkpointer:
+   - ``mesh_world(8)`` on the card with ``quant.enable`` set, int8 and
+     fp8, at 1 MB and 64 MB a rank (f32, seed 0), against the CPU comm:
+     the eligible call counted as quantized, every row equal, within one
+     quantization step of the CPU's result, within the codec's error bound
+     of the exact sum, ``allreduce_init``'s Start equal to the verb, a
+     counted wire ratio of at least 3.5; device ms and host us beside the
+     plain allreduce's (in turns) and its bound;
+   - a [8, 2^24] f32 ``MeshWin`` on the card against one on the CPU under
+     fence, PSCW and lock epochs, bit for bit; RMA outside an epoch
+     refused (``ERR_WIN``); an Rput behind 50 ms of queued sleep returning
+     with ``Test()`` False; device ms of Put and Accumulate of a 64 MB row
+     against their bounds, host us of ``Fetch_and_op``;
+   - 2 slice controllers sharing the card (``run_world``), each a
+     ``MeshComm(4)``: every verb and i-verb at 16 MB a rank against
+     ``mesh_world(8, "cpu")``'s flat verb (bit-exact but float SUM, 1e-6),
+     wall ms, and the allreduce's hops (the staged bridge's share);
+   - the flagship trained 5 steps straight twice (the card's spread), then
+     3 steps, a checkpoint saved and restored into fresh tensors on the
+     card, and 2 steps: the losses of the straight run within that spread,
+     the checkpoint's bytes and the save and restore wall ms, with the
+     kernel launch counts reset before the resumed run and read after;
 5. with ``--profile``: the flagship forward and one training step under
    ``torch.profiler``, the device time of the 20 largest kernels and of
    every flash kernel, and the device's busy share;
@@ -1309,6 +1332,390 @@ def phase_async(card):
     mod.mem_release(dst)
 
 
+# phase 4g: the quantized allreduce, the mesh window, the multi-slice comm
+# and the checkpointer
+QUANT_MODES = ("int8", "fp8")
+QUANT_SIZES = (1 << 20, 1 << 26)  # f32 bytes a rank
+QUANT_WIRE_RATIO = 3.5
+WIN_ELEMS = 1 << 24  # a [8, 2^24] f32 window: a row is 64 MiB
+SLICES, SLICE_D = 2, 4
+SLICE_BYTES = 16 << 20  # f32 bytes a rank
+SLICE_REPS = 3
+CKPT_STEPS, CKPT_AT = 5, 3
+
+
+def quant_gate(got, want, codec, what):
+    """A quantized allreduce's row ``got`` against ``want`` (1-D, CPU): the
+    non-finite elements equal, the rest within one quantization step of the
+    block (``BlockCodec.quant_step``): the two sum the dequantized rows in
+    other orders, which may move a block's scale by an ulp and a code by
+    one step. Returns (elements that differ, the largest difference in
+    steps)."""
+    g, w = got.double().numpy(), want.double().numpy()
+    fin = np.isfinite(w)
+    require(np.array_equal(g[~fin], w[~fin], equal_nan=True),
+            f"{what}: non-finite elements differ")
+    step = codec.quant_step(w)[fin]
+    diff = np.abs(g[fin] - w[fin])
+    steps = float((diff / np.where(step > 0, step, 1.0)).max()) \
+        if diff.size else 0.0
+    require(bool(np.all(diff <= step * (1 + 1e-5))),
+            f"{what}: {steps:.3f} quantization steps off the CPU")
+    return int((diff > 0).sum()), steps
+
+
+def phase_quant(card):
+    """Phase 4g, quant: mesh_world(8) on the card with quant.enable set,
+    int8 and fp8, at 1 MB and 64 MB a rank, against the CPU comm; device
+    ms and host us beside the plain allreduce's."""
+    from ompi_tpu_torch import quant
+    from ompi_tpu_torch.parallel.mesh import mesh_world
+
+    W, f4 = COMM_W, 4
+    plain = mesh_world(W)
+    require(plain.coll.providers["allreduce"] == "mesh",
+            "a comm built without quant.enable keeps the plain allreduce")
+    res = {}
+    for mode in QUANT_MODES:
+        quant.enable, quant.mode = True, mode
+        try:
+            cpu, dev = mesh_world(W, "cpu"), mesh_world(W)
+        finally:
+            quant.enable, quant.mode = False, "int8"
+        require(dev.coll.providers["allreduce"] == "quant"
+                and cpu.coll.providers["allreduce"] == "quant",
+                f"quant {mode}: the quantized allreduce holds the slot")
+        codec = dev._quant_state.codec
+        for nbytes in QUANT_SIZES:
+            what = f"quant {mode} allreduce {nbytes} B a rank"
+            x_c = torch.randn((W, nbytes // f4),
+                              generator=torch.Generator().manual_seed(0))
+            x_d = x_c.cuda()
+            quant.reset_counters()
+            got = dev.allreduce(x_d)
+            c = quant.counters()
+            require(c["colls"] == 1, f"{what}: the eligible call took the "
+                                     f"quantized body ({c})")
+            ratio = (c["bytes_saved"] + c["bytes_wire"]) / c["bytes_wire"]
+            require(ratio >= QUANT_WIRE_RATIO,
+                    f"{what}: counted wire ratio {ratio:.3f}")
+            require(bool((got == got[:1]).all()), f"{what}: rows differ")
+            want = cpu.allreduce(x_c)
+            ndiff, steps = quant_gate(got[0].cpu(), want[0], codec, what)
+            err = (got[0].cpu().double() - x_c.double().sum(0)).abs()
+            bound = codec.error_bound(x_c.numpy())
+            require(bool(np.all(err.numpy() <= bound)),
+                    f"{what}: outside the error bound of the exact sum")
+            req = dev.allreduce_init(x_d)
+            req.Start()
+            req.Wait()
+            require(req._frozen and torch.equal(req.result, got),
+                    f"{what}: allreduce_init's Start vs the verb")
+            del got, want, req
+            ms = {"plain": [], "quant": []}
+            for k in ("plain", "quant", "quant", "plain"):
+                comm = dev if k == "quant" else plain
+                ms[k].append(time_ms(lambda: comm.allreduce(x_d)))
+            us = {k: 1e3 * host_ms(lambda c=c: c.allreduce(x_d))
+                  for k, c in (("plain", plain), ("quant", dev))}
+            bound_ms = 2 * x_d.numel() * f4 / PEAK_BYTES * 1e3
+            res[mode, nbytes] = dict(ms=ms, us=us, bound_ms=bound_ms)
+            print(f"{what}: rows equal, {ndiff} of {x_c.shape[1]} elements "
+                  f"off the CPU comm's by at most {steps:.3f} quantization "
+                  f"steps, max err {float(err.max()):.4e} within the error "
+                  f"bound (max {float(bound.max()):.4e}), wire ratio "
+                  f"{ratio:.3f}, allreduce_init equal; device ms quantized "
+                  f"{ms['quant']} vs plain {ms['plain']} (in turns), host "
+                  f"us {us['quant']:.1f} vs {us['plain']:.1f}, bound "
+                  f"{bound_ms:.4f} ms ({2 * x_d.numel() * f4} bytes read "
+                  f"and written) on {card}", flush=True)
+            del x_c, x_d, err
+    return res
+
+
+def phase_window(card):
+    """Phase 4g, window: a [8, 2^24] f32 MeshWin on the card against one on
+    the CPU under fence, PSCW and lock epochs; misuse; Rput behind queued
+    work; device ms of Put and Accumulate of a 64 MB row, host us of
+    Fetch_and_op."""
+    from ompi_tpu_torch.core.errors import MPIError, ERR_WIN
+    from ompi_tpu_torch.core.op import MAX
+    from ompi_tpu_torch.osc.window import MeshWin, MODE_NOSUCCEED
+    from ompi_tpu_torch.parallel.mesh import mesh_world
+
+    W, f4 = COMM_W, 4
+    wins = (MeshWin(mesh_world(W, "cpu"), (WIN_ELEMS,)),
+            MeshWin(mesh_world(W), (WIN_ELEMS,)))
+    gen = torch.Generator().manual_seed(9)
+    rows = [torch.randn(WIN_ELEMS, generator=gen) for _ in range(3)]
+
+    def script(win, rs):
+        out = []
+        win.Fence()
+        win.Put(rs[0], 1)
+        win.Accumulate(rs[1], 1)
+        out.append(win.Get(1))
+        win.Fence(MODE_NOSUCCEED)
+        win.Post([2])
+        win.Start([2])
+        win.Put(rs[1], 2)
+        win.Accumulate(rs[2], 2, MAX)
+        win.Complete()
+        win.Wait()
+        win.Lock(5)
+        win.Put(rs[2], 5)
+        win.Accumulate(rs[0], 5)
+        out.append(win.Get(5))
+        out.append(win.Fetch_and_op(1.5, 5, 7))
+        out.append(win.Compare_and_swap(out[-1] + 1.5, -1.0, 5, 7))
+        win.Unlock(5)
+        win.Lock_all()
+        out.append(win.Get(2))
+        win.Unlock_all()
+        return out + [win.array]
+
+    want = script(wins[0], rows)
+    got = script(wins[1], [r.cuda() for r in rows])
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g.is_cuda and torch.equal(g.cpu(), w),
+                f"window: value {i} on the card vs the CPU")
+    win = wins[1]
+    try:
+        win.Put(rows[0].cuda(), 3)
+        refused = None
+    except MPIError as e:
+        refused = e.code
+    require(refused == ERR_WIN, f"window: RMA outside an epoch ({refused})")
+    row = rows[0].cuda()
+    win.Lock(4)
+    win.Rput(row, 4).Wait()
+    cycles = _sleep_cycles(ASYNC_SLEEP_MS)
+    torch.cuda.synchronize()
+    t_sleep = torch.cuda.Event(enable_timing=True)
+    t_woke = torch.cuda.Event(enable_timing=True)
+    t_sleep.record()
+    torch.cuda._sleep(cycles)
+    t_woke.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        req = win.Rput(row, 4)
+        call_ms = 1e3 * (time.perf_counter() - t0)
+        pending = not req.Test()
+        old = win.Fetch_and_op(2.0, 4, 9)  # a Python operand: no host copy
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    req.Wait()
+    sleep_ms = t_sleep.elapsed_time(t_woke)
+    require(sleep_ms >= ASYNC_SLEEP_MIN_MS and call_ms < sleep_ms and pending,
+            "window: Rput returns before the card runs it")
+    require(float(old) == float(row[9]) and float(win.array[4, 9])
+            == float(row[9] + 2.0), "window: Fetch_and_op behind the Rput")
+    win.Unlock(4)
+    win.Lock_all()
+    put_ms = time_ms(lambda: win.Put(row, 4))
+    acc_ms = time_ms(lambda: win.Accumulate(row, 4))
+    fop_us = 1e3 * host_ms(lambda: win.Fetch_and_op(1.0, 4, 3))
+    win.Unlock_all()
+    nb = WIN_ELEMS * f4
+    put_bound, acc_bound = (k * nb / PEAK_BYTES * 1e3 for k in (2, 3))
+    print(f"window [{W}, {WIN_ELEMS}] f32 on the card: fence, PSCW and lock "
+          f"epochs equal to the CPU window ({len(want)} values), RMA outside "
+          f"an epoch refused (ERR_WIN), Rput {call_ms:.3f} host ms behind "
+          f"{sleep_ms:.3f} ms of queued sleep with Test() False, and a "
+          f"Fetch_and_op behind it with no host sync; Put of a "
+          f"{nb} B row {put_ms:.4f} ms (bound {put_bound:.4f}), Accumulate "
+          f"{acc_ms:.4f} ms (bound {acc_bound:.4f}), Fetch_and_op "
+          f"{fop_us:.1f} host us on {card}", flush=True)
+    return dict(put_ms=put_ms, acc_ms=acc_ms, fop_us=fop_us,
+                put_bound=put_bound, acc_bound=acc_bound)
+
+
+def _slice_wall(fn):
+    """Wall ms of ``fn()`` with the card synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _slice_rank(nbytes, seed):
+    """One slice controller of the multi-slice world: each verb and i-verb
+    on this slice's rows of one global input, against the flat verb of
+    mesh_world(8, "cpu") on the whole of it; wall ms, and where the
+    allreduce's time goes."""
+    import torch.distributed as dist
+
+    from ompi_tpu_torch.core import op as top
+    from ompi_tpu_torch.parallel import axes
+    from ompi_tpu_torch.parallel.mesh import MeshComm, mesh_world
+    from ompi_tpu_torch.parallel.multislice import MultiSliceComm
+
+    dev = axes.current_mesh().device
+    s, D = dist.get_rank(), SLICE_D
+    W = SLICES * D
+    ms = MultiSliceComm(MeshComm(D, dev))
+    flat = mesh_world(W, "cpu")
+    n = nbytes // 4
+    gen = torch.Generator().manual_seed(seed)
+    xf = torch.randn((W, n), generator=gen)
+    xi = torch.randint(0, 2, (W, n), generator=gen, dtype=torch.int32)
+    xb = xf.view(W, W, n // W)
+    mine = lambda t: t[s * D:(s + 1) * D]  # noqa: E731
+    # name: (verb, its i-verb, global input, flat verb, summed magnitudes)
+    cases = {
+        "allreduce SUM f32": (ms.allreduce, ms.iallreduce, xf,
+                              flat.allreduce, xf.abs().sum(0)),
+        "allreduce MAX f32": (lambda a: ms.allreduce(a, top.MAX),
+                              lambda a: ms.iallreduce(a, top.MAX), xf,
+                              lambda a: flat.allreduce(a, top.MAX), None),
+        "allreduce LOR i32 (folded)": (
+            lambda a: ms.allreduce(a, top.LOR),
+            lambda a: ms.iallreduce(a, top.LOR), xi,
+            lambda a: flat.allreduce(a, top.LOR), None),
+        "bcast": (lambda a: ms.bcast(a, 1, 2), lambda a: ms.ibcast(a, 1, 2),
+                  xf, lambda a: flat.bcast(a, D + 2), None),
+        "allgather": (ms.allgather, ms.iallgather, xf, flat.allgather, None),
+        "reduce_scatter SUM f32": (ms.reduce_scatter, ms.ireduce_scatter,
+                                   xb, flat.reduce_scatter,
+                                   mine(xb.abs().sum(0))),
+        "alltoall": (ms.alltoall, ms.ialltoall, xb, flat.alltoall, None),
+    }
+    out = dict(fails=[], ms={})
+    for name, (verb, iverb, x, flat_fn, sums) in cases.items():
+        x_d = mine(x).to(dev)
+        got, _ = _slice_wall(lambda: verb(x_d))
+        want = mine(flat_fn(x))
+        g = got.cpu()
+        if g.dtype != want.dtype or g.shape != want.shape:
+            out["fails"].append(f"{name}: {g.dtype} {tuple(g.shape)} vs "
+                                f"{want.dtype} {tuple(want.shape)}")
+        elif sums is None and not torch.equal(g, want):
+            out["fails"].append(f"{name}: values differ")
+        elif sums is not None and not bool(
+                ((g - want).abs() <= 1e-6 * sums).all()):
+            out["fails"].append(f"{name}: beyond 1e-6 of the magnitudes")
+        req = iverb(x_d)
+        req.Wait()
+        if not torch.equal(req.result, got):
+            out["fails"].append(f"i{name}: differs from the blocking verb")
+        del got, want, g, req
+        out["ms"][name] = [_slice_wall(lambda: verb(x_d))[1]
+                           for _ in range(SLICE_REPS)]
+    req = ms.ibarrier()
+    ms.barrier()
+    if not req.Test():
+        out["fails"].append("a barrier overtook the ibarrier")
+    # the allreduce's hops: slice-local verb, D2H, bridge, H2D and expand
+    x_d = mine(xf).to(dev)
+    parts = {k: [] for k in ("slice", "d2h", "bridge", "h2d")}
+    for _ in range(SLICE_REPS):
+        dist.barrier(group=ms.bridge)
+        local, t = _slice_wall(lambda: ms.slice.allreduce(x_d))
+        parts["slice"].append(t)
+        row, t = _slice_wall(lambda: local[0].cpu())
+        parts["d2h"].append(t)
+        dist.barrier(group=ms.bridge)  # the exchange alone, not the skew
+        comb, t = _slice_wall(lambda: ms._host_exchange(row, top.SUM))
+        parts["bridge"].append(t)
+        parts["h2d"].append(_slice_wall(lambda: ms._replicate(comb))[1])
+    out["parts"] = parts
+    ms.Free()
+    out["transport"] = axes.current_mesh().backend
+    return out
+
+
+def phase_multislice(card):
+    """Phase 4g, multi-slice: 2 slice controllers sharing the card, each a
+    MeshComm(4), every verb and i-verb against the flat CPU verb."""
+    from ompi_tpu_torch.parallel.launch import run_world
+
+    t0 = time.perf_counter()
+    ranks = run_world(_slice_rank, SLICES, "cuda", SLICE_BYTES, 21,
+                      timeout=600)
+    world_s = time.perf_counter() - t0
+    for r, rk in enumerate(ranks):
+        require(not rk["fails"], f"multi-slice slice {r}: {rk['fails']}")
+    head = ranks[0]
+    parts = {k: float(np.median(v)) for k, v in head["parts"].items()}
+    share = parts["bridge"] / sum(parts.values())
+    walls = {k: [round(x, 3) for x in v] for k, v in head["ms"].items()}
+    print(f"multi-slice {SLICES} slices x MeshComm({SLICE_D}) sharing the "
+          f"card, bridge over gloo (world {head['transport']}), "
+          f"{SLICE_BYTES} B a rank: every verb and i-verb equal to "
+          f"mesh_world({SLICES * SLICE_D}, 'cpu')'s flat verb (float SUM "
+          f"within 1e-6); wall ms on slice 0 {walls}; the allreduce's hops "
+          f"(median ms) slice {parts['slice']:.3f}, D2H {parts['d2h']:.3f}, "
+          f"bridge {parts['bridge']:.3f}, H2D and expand "
+          f"{parts['h2d']:.3f}: the staged bridge hop {share:.3f} of it; "
+          f"world {world_s:.1f} s with start-up on {card}", flush=True)
+    return dict(ms=head["ms"], parts=parts, bridge_share=share)
+
+
+def phase_checkpoint(fa, tfm, card):
+    """Phase 4g, checkpoint, at the flagship width: 5 steps straight, twice
+    (the card's spread); then 3 steps, save, restore into fresh tensors on
+    the card, 2 steps, with the kernel launch counts reset before it and
+    read after. Returns the counts."""
+    import os
+    import tempfile
+
+    from ompi_tpu_torch.runtime.checkpoint import MeshCheckpointer
+
+    cfg = tfm.Config(**FLAGSHIP)
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, cfg.vocab, size=(BATCH, cfg.seq_len))
+    step, place = tfm.make_train_step(cfg, "cuda")
+
+    def fresh():
+        return place(tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cuda"), toks, np.roll(toks, -1, axis=1))
+
+    def run(p, t, g, n):
+        return [float(step(p, t, g)[0]) for _ in range(n)]
+
+    runs = []
+    for _ in range(2):
+        p, t, g = fresh()
+        runs.append(run(p, t, g, CKPT_STEPS))
+        del p
+    spread = max(abs(a - b) for a, b in zip(*runs))
+    reset_launches(fa)
+    p, t, g = fresh()
+    first = run(p, t, g, CKPT_AT)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        ck = MeshCheckpointer(d)
+        _, save_ms = _slice_wall(lambda: ck.save(CKPT_AT, p))
+        nbytes = os.path.getsize(os.path.join(d, str(CKPT_AT), "state.pt"))
+        restored, restore_ms = _slice_wall(
+            lambda: ck.restore(CKPT_AT, specs=tfm.param_specs(cfg)))
+        ck.close()
+    saved, back = tfm.param_leaves(p), tfm.param_leaves(restored)
+    require(all(b.is_cuda and b.data_ptr() != a.data_ptr()
+                and torch.equal(a, b) for a, b in zip(saved, back)),
+            "checkpoint: restored into fresh tensors on the card, equal to "
+            "the saved ones")
+    del p, saved
+    resumed = run(restored, t, g, CKPT_STEPS - CKPT_AT)
+    counts = launches(fa)
+    want = CKPT_STEPS * cfg.n_layers
+    off = max(abs(a - b) for a, b in zip(first + resumed, runs[0]))
+    print(f"checkpoint {cfg} batch {BATCH}: losses straight "
+          f"{runs[0]}, again {runs[1]} (spread {spread:.3e}); {CKPT_AT} "
+          f"steps, save, restore, {CKPT_STEPS - CKPT_AT} steps: {first} + "
+          f"{resumed} (largest difference to the straight run {off:.3e}); "
+          f"checkpoint {nbytes} B, save {save_ms:.1f} ms, restore "
+          f"{restore_ms:.1f} ms (wall); launches {counts} on {card}",
+          flush=True)
+    require(all(np.isfinite(runs[0])) and off <= spread,
+            f"checkpoint: the resumed losses are {off:.3e} off the straight "
+            f"run's, beyond the card's spread {spread:.3e}")
+    require(counts == {name: want for name in counts},
+            f"checkpoint: launched {counts}, expected {want} of each kernel")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1356,6 +1763,10 @@ def main() -> int:
     phase_comm(card)
     phase_dryrun(entry_mod, card)
     phase_async(card)
+    phase_quant(card)
+    phase_window(card)
+    phase_multislice(card)
+    ckpt_counts = phase_checkpoint(fa, tfm, card)
 
     # 5. where the time goes
     if args.profile:
@@ -1376,6 +1787,7 @@ def main() -> int:
             "source": f"ompi_tpu_torch/csrc/{src}",
             "replaces": f"ompi_tpu/ops/flash_attention.py:{line}",
             "launches": n, "mesh_launches_a_rank": mesh_counts[name],
+            "checkpoint_launches": ckpt_counts[name],
             **res[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

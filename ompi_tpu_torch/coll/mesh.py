@@ -177,17 +177,28 @@ VERBS = ("allreduce", "reduce", "bcast", "allgather", "alltoall",
 
 
 class CollTable(dict):
-    """A communicator's collectives: verb -> ``MeshColl`` method, and the
-    component that provides each (``providers``)."""
+    """A communicator's collectives: verb -> the method of the module that
+    provides it (``modules``; ``providers`` names them)."""
 
     def __init__(self, module: "MeshColl"):
         super().__init__((v, getattr(module, v)) for v in VERBS)
-        self.providers = dict.fromkeys(self, "mesh")
+        self.modules = dict.fromkeys(self, module)
+
+    def select(self, verb: str, module) -> None:
+        """Give ``verb``'s slot to ``module``."""
+        self[verb] = getattr(module, verb)
+        self.modules[verb] = module
+
+    @property
+    def providers(self):
+        return {v: m.NAME for v, m in self.modules.items()}
 
 
 class MeshColl:
     """Collectives for ``MeshComm``; one callable per cache key, cached on
     the communicator."""
+
+    NAME = "mesh"
 
     # ------------------------------------------------------------ plumbing
     def _cached(self, comm, key, build):
@@ -291,6 +302,11 @@ class MeshColl:
 
         return body
 
+    @staticmethod
+    def allreduce_key(op: _op.Op):
+        """The cache key of ``allreduce``'s callable."""
+        return cache_key("allreduce", op)
+
     def allreduce(self, comm, x, op: _op.Op = _op.SUM):
         def build():
             body = self._allreduce_body(comm, op)
@@ -301,11 +317,13 @@ class MeshColl:
 
             return fn
 
-        return self._dispatch(comm, cache_key("allreduce", op), build, x)
+        return self._dispatch(comm, self.allreduce_key(op), build, x)
 
     def reduce(self, comm, x, op: _op.Op = _op.SUM, root: int = 0):
         """MPI defines only the root row; every group row gets the
-        reduction (a legal strengthening, and the reference's)."""
+        reduction (a legal strengthening, and the reference's). It is this
+        module's allreduce, never the comm's slot: on a quant-selected comm
+        reduce stays exact."""
         return self.allreduce(comm, x, op)
 
     def _rooted(self, comm):

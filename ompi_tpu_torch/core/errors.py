@@ -1,7 +1,8 @@
 """MPI error classes, the exception type and the error handlers.
 
 The port's copy of the part of ``ompi_tpu/core/errors.py`` that the
-mesh-mode communicator and its requests raise or carry. Error classes are
+mesh-mode communicator, its requests, the mesh window, the multi-slice
+comm and the checkpointer raise or carry. Error classes are
 the stable integers of ``mpi.h``; the verbs raise ``MPIError`` with the
 class.
 """
@@ -17,7 +18,10 @@ ERR_GROUP = 9
 ERR_OP = 10
 ERR_TOPOLOGY = 11
 ERR_ARG = 13
+ERR_INTERN = 17
 ERR_PENDING = 19
+ERR_FILE = 27
+ERR_WIN = 45
 ERR_UNSUPPORTED_OPERATION = 63
 # ULFM (MPIX_ERR_REVOKED): an operation on a revoked communicator
 ERR_REVOKED = 77
@@ -30,7 +34,10 @@ _ERROR_STRINGS = {
     ERR_OP: "MPI_ERR_OP: invalid reduce operation",
     ERR_TOPOLOGY: "MPI_ERR_TOPOLOGY: invalid communicator topology",
     ERR_ARG: "MPI_ERR_ARG: invalid argument",
+    ERR_INTERN: "MPI_ERR_INTERN: internal error",
     ERR_PENDING: "MPI_ERR_PENDING: pending request",
+    ERR_FILE: "MPI_ERR_FILE: invalid file handle",
+    ERR_WIN: "MPI_ERR_WIN: invalid window",
     ERR_UNSUPPORTED_OPERATION: "MPI_ERR_UNSUPPORTED_OPERATION",
     ERR_REVOKED: "MPIX_ERR_REVOKED: communicator revoked",
 }

@@ -33,6 +33,7 @@ import torch
 
 from ompi_tpu_torch.coll import mesh as _mesh
 from ompi_tpu_torch.coll import persist as _persist
+from ompi_tpu_torch.coll import quant as _quant_coll
 from ompi_tpu_torch.coll.mesh import cache_key
 from ompi_tpu_torch.coll.sched import DeviceRequest, MeshPersistentRequest
 from ompi_tpu_torch.comm.communicator import UNDEFINED, Intracomm
@@ -97,6 +98,9 @@ class MeshComm(Intracomm):
         # cache key -> resolved callable, filled by MeshColl on a miss
         self._cache = {}
         self.coll = _mesh.CollTable(_mesh.module)
+        # the quantized allreduce takes the slot where quant.enable is set
+        # and the comm is the whole axis (every new comm is selected anew)
+        _quant_coll.select(self)
 
     # ------------------------------------------------------------- queries
     @property
@@ -261,15 +265,18 @@ class MeshComm(Intracomm):
         return None if op.is_pair else key
 
     def allreduce_init(self, x, op: _op.Op = _op.SUM):
-        return self._pcoll_init("allreduce", x, op, key=self._op_key(
-            op, cache_key("allreduce", op)))
+        # the key of the callable the allreduce slot runs: the quantized
+        # one on a quant-selected comm, as the reference's fast table holds
+        key = self.coll.modules["allreduce"].allreduce_key(op)
+        return self._pcoll_init("allreduce", x, op,
+                                key=self._op_key(op, key))
 
     def bcast_init(self, x, root: int = 0):
         return self._pcoll_init("bcast", x, root, key=cache_key("bcast"),
                                 bind=(root,))
 
     def reduce_init(self, x, op: _op.Op = _op.SUM, root: int = 0):
-        # the mesh reduce is the allreduce on every row: its callable
+        # the mesh reduce is the plain allreduce on every row: its callable
         return self._pcoll_init("reduce", x, op, root, key=self._op_key(
             op, cache_key("allreduce", op)))
 

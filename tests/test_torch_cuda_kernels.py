@@ -21,7 +21,13 @@ against ``mesh_world(8, "cpu")``, verb by verb, through ``chip_smoke.py``'s
 the JAX configuration on the card against the CPU's loss (1e-5 relative),
 and the comm's nonblocking and persistent verbs and the accelerator
 component on the card: each i-verb returns behind queued device work with
-no host sync, its request pending until the device has run it.
+no host sync, its request pending until the device has run it. Then the
+quantized allreduce on the card against the CPU comm (one quantization
+step, and the error bound of the exact sum), the mesh window (bit for bit,
+and an Rput behind queued work), two slice controllers sharing the card
+(``chip_smoke._slice_rank``: exact but float SUM, 1e-6) and a checkpoint
+resume on the card (the losses of the run straight, within the spread of
+two such runs: 0 where the step is repeatable).
 """
 
 import importlib.util
@@ -440,3 +446,126 @@ def test_accelerator_on_the_card_selects_cuda(cuda):
     assert [d["kind"] for d in accelerators()] == [
         torch.cuda.get_device_name(i)
         for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quant_allreduce_on_the_card_matches_the_cpu(cuda, mode):
+    """A quant-selected mesh_world(8) on the card: the eligible call is
+    quantized (counted), every row equal, within one quantization step of
+    the CPU comm's result and within the error bound of the exact sum;
+    allreduce_init and iallreduce run the same body; reduce stays exact."""
+    from ompi_tpu_torch import quant
+
+    quant.enable, quant.mode = True, mode
+    try:
+        cpu, dev = mesh_world(8, "cpu"), mesh_world(8)
+    finally:
+        quant.enable, quant.mode = False, "int8"
+    assert dev.coll.providers["allreduce"] == "quant"
+    codec = dev._quant_state.codec
+    x = torch.randn((8, 1 << 16), generator=torch.Generator().manual_seed(2))
+    x[0, 5], x[3, 700] = float("inf"), float("nan")
+    quant.reset_counters()
+    got = dev.allreduce(x.cuda())
+    assert quant.counters()["colls"] == 1
+    assert bool((got.nan_to_num() == got[:1].nan_to_num()).all())
+    cs.quant_gate(got[0].cpu(), cpu.allreduce(x)[0], codec, mode)
+    bound = codec.error_bound(x.numpy())
+    err = (got[0].cpu().double() - x.double().sum(0)).abs().numpy()
+    fin = np.isfinite(bound)
+    assert np.all(err[fin] <= bound[fin])
+    req = dev.allreduce_init(x.cuda())
+    req.Start()
+    req.Wait()
+    ireq = dev.iallreduce(x.cuda())
+    ireq.Wait()
+    for r in (req, ireq):
+        assert torch.equal(r.result.nan_to_num(), got.nan_to_num())
+    y = torch.randn((8, 1 << 16), device="cuda")
+    assert torch.equal(dev.reduce(y), mesh_world(8).allreduce(y))
+
+
+@pytest.mark.cuda
+def test_mesh_window_on_the_card(cuda):
+    """The window's epochs on the card against the CPU window, bit for bit;
+    an Rput behind queued device work returns with Test() False, and a
+    Fetch_and_op with a Python operand syncs nothing."""
+    from ompi_tpu_torch.core.op import MAX
+    from ompi_tpu_torch.osc.window import MeshWin
+
+    wins = MeshWin(mesh_world(8, "cpu"), (4096,)), MeshWin(mesh_world(8),
+                                                           (4096,))
+    rows = [torch.randn(4096) for _ in range(2)]
+    for win, on in zip(wins, (lambda t: t, lambda t: t.cuda())):
+        win.Fence()
+        win.Put(on(rows[0]), 3)
+        win.Accumulate(on(rows[1]), 3, MAX)
+        win.Accumulate(on(rows[1]), 6)
+        win.Fence()
+    assert torch.equal(wins[1].array.cpu(), wins[0].array)
+    win, row = wins[1], rows[0].cuda()
+    win.Lock(1)
+    cycles = cs._sleep_cycles(30.0)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        req = win.Rput(row, 1)
+        pending = not req.Test()
+        old = win.Fetch_and_op(1.0, 1, 2)  # no host copy of the operand
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pending
+    req.Wait()
+    win.Unlock(1)
+    assert float(old) == float(row[2])
+    row[2] += 1.0
+    assert torch.equal(win.array[1], row)
+
+
+def _slice_rank(nbytes, seed):
+    # the ranks import this module by name: chip_smoke's own is not one
+    return cs._slice_rank(nbytes, seed)
+
+
+@pytest.mark.cuda
+def test_multislice_on_the_card_matches_the_flat_verbs(cuda):
+    """Two slice controllers sharing the card (chip_smoke's phase 4g world
+    at 64 KB a rank): every verb and i-verb against the flat CPU verb."""
+    ranks = run_world(_slice_rank, cs.SLICES, "cuda", 1 << 16, 5,
+                      timeout=300)
+    assert all(not rk["fails"] for rk in ranks), [rk["fails"] for rk in ranks]
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_the_card(cuda, tmp_path):
+    """3 steps, save, restore into fresh tensors on the card, 2 steps: the
+    losses of 5 steps straight, and the restored tensors equal the saved."""
+    from ompi_tpu_torch.runtime.checkpoint import MeshCheckpointer
+
+    cfg = ttfm.Config(vocab=512, d_model=128, n_heads=2, n_layers=2,
+                      d_ff=256, seq_len=128)
+    toks = np.random.RandomState(4).randint(0, cfg.vocab, size=(2, 128))
+    step, place = ttfm.make_train_step(cfg, "cuda")
+
+    def fresh():
+        return place(ttfm.init_params(cfg, torch.Generator().manual_seed(0),
+                                      "cuda"), toks, np.roll(toks, -1, 1))
+
+    runs = []
+    for _ in range(2):
+        p, t, g = fresh()
+        runs.append([float(step(p, t, g)[0]) for _ in range(5)])
+    spread = max(abs(a - b) for a, b in zip(*runs))
+    p, t, g = fresh()
+    first = [float(step(p, t, g)[0]) for _ in range(3)]
+    ck = MeshCheckpointer(str(tmp_path / "ck"))
+    ck.save(3, p)
+    back = ck.restore(specs=ttfm.param_specs(cfg))
+    for a, b in zip(ttfm.param_leaves(p), ttfm.param_leaves(back)):
+        assert b.is_cuda and b.data_ptr() != a.data_ptr()
+        assert torch.equal(a, b)
+    resumed = [float(step(back, t, g)[0]) for _ in range(2)]
+    assert max(abs(a - b) for a, b in zip(first + resumed, runs[0])) \
+        <= spread

@@ -52,7 +52,12 @@ def test_the_scan_sees_a_forbidden_import():
     "ompi_tpu_torch.coll.sched", "ompi_tpu_torch.parallel.partitioned",
     "ompi_tpu_torch.reshard.exec", "ompi_tpu_torch.accelerator",
     "ompi_tpu_torch.accelerator.base", "ompi_tpu_torch.accelerator.cuda",
-    "ompi_tpu_torch.runtime.topology", "ompi_tpu_torch.tools.info"])
+    "ompi_tpu_torch.runtime.topology", "ompi_tpu_torch.tools.info",
+    "ompi_tpu_torch.quant", "ompi_tpu_torch.quant.codec",
+    "ompi_tpu_torch.quant.negotiate", "ompi_tpu_torch.coll.quant",
+    "ompi_tpu_torch.osc", "ompi_tpu_torch.osc.window",
+    "ompi_tpu_torch.parallel.multislice",
+    "ompi_tpu_torch.runtime.checkpoint"])
 def test_modules_import_without_building(mod):
     importlib.import_module(mod)
     from ompi_tpu_torch.ops import _build
