@@ -97,6 +97,20 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      card, and 2 steps: the losses of the straight run within that spread,
      the checkpoint's bytes and the save and restore wall ms, with the
      kernel launch counts reset before the resumed run and read after;
+4h. the port's benchmark and tools (``ompi_tpu_torch/tools``) at their own
+   sizes, in this process: ``bench``'s allreduce sweep (1 KB to 64 MB a
+   rank), bcast, allgather and alltoall at 16 MB in total, each verb's
+   result against its raw PyTorch counterpart's (bit-exact but the world
+   float SUM, 1e-6), the dispatch tax, the quantized-allreduce sweep (64 KB
+   to 16 MB a rank, within the codec's bound); ``bench_mfu`` at the
+   flagship, batch 36, a warm-up and 12 timed steps, with its ablations,
+   the kernel launch counts reset before it and read after (12 * n_layers
+   of each kernel in the timed full steps, none under identity attention);
+   ``profile_flash`` (16 calls a round, 3 rounds a row; the "ours" rows
+   launch the kernels), ``profile_mfu`` (8 steps a variant) and
+   ``attn_probe`` (8 calls or steps a probe) once each; the
+   ``mesh_allreduce`` example on the card with and without ``--quant``, its
+   lines against the same example on the CPU;
 5. with ``--profile``: the flagship forward and one training step under
    ``torch.profiler``, the device time of the 20 largest kernels and of
    every flash kernel, and the device's busy share;
@@ -117,9 +131,8 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores and HBM3 bandwidth
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+from ompi_tpu_torch.tools.bench import (PEAK_BF16_FLOPS, PEAK_BYTES, host_ms,
+                                        launch_counts, time_ms, train_flops)
 
 FLAGSHIP = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8, d_ff=4096,
                 seq_len=1024)
@@ -149,34 +162,6 @@ def require(cond: bool, what: str) -> None:
     if not cond:
         print(f"chip_smoke: FAILED: {what}", file=sys.stderr, flush=True)
         sys.exit(1)
-
-
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def host_ms(fn, iters: int = 20) -> float:
-    """Host time of one call of ``fn`` by the host clock, with the device
-    running behind it: for a kernel's wrapper, its checks, allocations,
-    tensor maps and launch."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return 1e3 * (t1 - t0) / iters
 
 
 def qkv(shape, seed, dtype):
@@ -370,11 +355,6 @@ def reset_launches(fa) -> None:
     fa.KERNEL_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
 
 
-def launches(fa):
-    return {"flash_fwd": fa.KERNEL_LAUNCHES, "flash_dq": fa.DQ_LAUNCHES,
-            "flash_dkv": fa.DKV_LAUNCHES}
-
-
 def phase_kernels(fa, card):
     """Phase 3: every kernel against its plain version, and its times."""
     B, H, T, D = BATCH, FLAGSHIP["n_heads"], FLAGSHIP["seq_len"], \
@@ -496,7 +476,7 @@ def phase_serve(fa, tfm, entry_mod, params, cfg, card):
         if first is None:
             first = logits
         del logits
-    counts = launches(fa)
+    counts = launch_counts()
     require(counts == {"flash_fwd": REQUESTS * cfg.n_layers, "flash_dq": 0,
                        "flash_dkv": 0},
             f"serving launched {counts}, expected flash_fwd "
@@ -534,14 +514,6 @@ def phase_serve(fa, tfm, entry_mod, params, cfg, card):
           f"launches {e_launches}, max|logits - plain| {e_err:.3e}",
           flush=True)
     return counts, batches[0]
-
-
-def train_flops(tfm, params, cfg, tokens: int) -> float:
-    """bench_mfu's count: 6*N per token (forward 2N, backward 4N) plus
-    12*L*T*D per token for attention."""
-    n = sum(p.numel() for p in tfm.param_leaves(params))
-    return (6.0 * n + 12.0 * cfg.n_layers * cfg.seq_len * cfg.d_model) \
-        * tokens
 
 
 def leaf_names(params, prefix=""):
@@ -601,14 +573,14 @@ def phase_train(fa, tfm, params, cfg, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
-    counts = launches(fa)
+    counts = launch_counts()
     want = STEPS * cfg.n_layers
     require(counts == {name: want for name in counts},
             f"training launched {counts}, expected {want} of each kernel")
     require(all(np.isfinite(losses)), f"training losses {losses} finite")
     step_ms = 1e3 * sum(times) / len(times)
     tokens = BATCH * cfg.seq_len
-    flops = train_flops(tfm, params, cfg, tokens)
+    flops = train_flops(params, cfg, tokens)
     mfu = flops / (step_ms / 1e3) / PEAK_BF16_FLOPS
     print(f"train {cfg} batch {BATCH}: {step_ms:.3f} ms/step "
           f"({', '.join(f'{1e3 * t:.3f}' for t in times)}), "
@@ -679,7 +651,7 @@ def _ring_rank(sp, seed):
     run()
     reset_launches(fa)
     got, ms = _world_ms(run)
-    counts = launches(fa)
+    counts = launch_counts()
     with torch.no_grad():
         got = [axes.allgather(x, "sp", concat_dim=2) for x in got]
     out = dict(counts=counts, ms=ms, transport=mesh.backend,
@@ -747,7 +719,7 @@ def _step_rank(model, batch, seed):
     del grads
     reset_launches(fa)
     (loss1, _), out["ms"] = _world_ms(lambda: step(local, t, g))
-    out["counts"] = launches(fa)
+    out["counts"] = launch_counts()
     (loss2, _), out["ms2"] = _world_ms(lambda: step(local, t, g))
     out["losses"] = [float(loss1), float(loss2)]
     return out
@@ -1698,7 +1670,7 @@ def phase_checkpoint(fa, tfm, card):
             "the saved ones")
     del p, saved
     resumed = run(restored, t, g, CKPT_STEPS - CKPT_AT)
-    counts = launches(fa)
+    counts = launch_counts()
     want = CKPT_STEPS * cfg.n_layers
     off = max(abs(a - b) for a, b in zip(first + resumed, runs[0]))
     print(f"checkpoint {cfg} batch {BATCH}: losses straight "
@@ -1714,6 +1686,123 @@ def phase_checkpoint(fa, tfm, card):
     require(counts == {name: want for name in counts},
             f"checkpoint: launched {counts}, expected {want} of each kernel")
     return counts
+
+
+def _example_lines(example, argv):
+    """The stdout lines of ``example.main(argv)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = example.main(argv)
+    require(rc == 0, f"mesh_allreduce {argv} exits 0")
+    return buf.getvalue().splitlines()
+
+
+def phase_bench(fa, card):
+    """Phase 4h: the port's bench legs at bench.py's sizes, the three
+    profiling tools once each, the mesh_allreduce example. Returns each
+    kernel's launches in bench_mfu's timed full steps."""
+    from ompi_tpu_torch.examples import mesh_allreduce as example
+    from ompi_tpu_torch.parallel.mesh import mesh_world
+    from ompi_tpu_torch.tools import attn_probe, bench, profile_flash
+    from ompi_tpu_torch.tools import profile_mfu
+
+    t0 = time.perf_counter()
+    world = mesh_world(COMM_W)
+    # the legs hold each verb's result against its raw counterpart's and
+    # raise where they differ
+    for row in bench.bench_allreduce_sweep(world, COMM_W):
+        print(f"bench allreduce {row['bytes']} B a rank: verb "
+              f"{row['ours_gbps']:.3f} GB/s, raw {row['raw_gbps']:.3f} GB/s "
+              f"(bus), fraction {row['fraction']:.4f}, results equal on "
+              f"{card}", flush=True)
+    for name, row in bench.bench_verbs(world, COMM_W).items():
+        print(f"bench {name}: verb {1e3 * row['ours_s']:.4f} ms, raw "
+              f"{1e3 * row['raw_s']:.4f} ms, fraction {row['fraction']:.4f}, "
+              f"results equal on {card}", flush=True)
+    tax = bench.bench_dispatch_tax(world)
+    print(f"bench dispatch tax: allreduce {tax['ours_us']:.1f} us, raw "
+          f"{tax['raw_us']:.1f} us, overhead {tax['overhead_us']:.1f} us, "
+          f"prologue {tax['prologue_us']:.3f} us; per verb (us, layer "
+          f"overhead us) " + ", ".join(
+              f"{k} {v['us']:.1f} {v['layer_overhead_us']:.1f}"
+              for k, v in tax["verb_sweep"].items())
+          + f" on {card}", flush=True)
+    require(all("us" in v for v in tax["verb_sweep"].values()),
+            f"dispatch tax: every verb's callable cached {tax['verb_sweep']}")
+    for row in bench.bench_quant_sweep(world, COMM_W):
+        require("skipped" not in row, f"quant sweep: {row}")
+        print(f"bench quant allreduce {row['bytes']} B a rank: fp32 "
+              f"{1e3 * row['fp32_s']:.4f} ms, quantized "
+              f"{1e3 * row['quant_s']:.4f} ms, fraction "
+              f"{row['fraction']:.4f}, max err / bound "
+              f"{row['max_err_vs_bound']:.4f} on {card}", flush=True)
+        require(row["max_err_vs_bound"] <= 1.0,
+                f"quant sweep {row['bytes']} B: outside the codec's bound")
+    legs_s = time.perf_counter() - t0
+
+    reset_launches(fa)
+    mfu = bench.bench_mfu()
+    counts = launch_counts()
+    L, k = mfu["config"]["n_layers"], mfu["ksteps"]
+    abl = mfu["ablations"]
+    print(f"bench model step {mfu['config']} batch {mfu['batch']}: "
+          f"{1e3 * mfu['step_s']:.3f} ms/step over {k} steps, "
+          f"{mfu['tokens_per_s']:.1f} tokens/s, {mfu['tflops_per_s']:.2f} "
+          f"TF/s, train_mfu {mfu.get('mfu', 'n/a')}, first loss "
+          f"{mfu['first_loss']:.6f}, peak allocated "
+          f"{mfu['peak_bytes']} B; ablations full {abl['full_ms']:.3f}, "
+          f"ce_loss {abl['ce_loss_ms']:.3f}, attention "
+          f"{abl['attention_ms']:.3f}, other {abl['other_ms']:.3f} ms; "
+          f"launches in the timed full steps {mfu['launches']}, identity "
+          f"attention {abl['identity_attention_launches']}, all of bench_mfu "
+          f"{counts} on {card}", flush=True)
+    require(np.isfinite(mfu["first_loss"]) and "mfu" in mfu,
+            "bench model step: a finite loss and an mfu")
+    require(mfu["launches"] == {n: k * L for n in counts},
+            f"bench model step launched {mfu['launches']}, expected {k * L} "
+            f"of each kernel")
+    idle = abl["identity_attention_launches"]
+    require(all(v == 0 for v in idle.values()),
+            f"identity attention launched {idle}")
+    # the full step and the sum-loss ablation, a warm-up and k steps each
+    require(counts == {n: 2 * (k + 1) * L for n in counts},
+            f"bench_mfu launched {counts}, expected {2 * (k + 1) * L} of each "
+            f"kernel and none under identity attention")
+    mfu_s = time.perf_counter() - t0 - legs_s
+
+    rows = profile_flash.main()
+    for label in ("ours flash fwd", "ours flash fwd+bwd"):
+        got = rows[label]["launches"]
+        require(got["flash_fwd"] > 0 and (label.endswith("fwd")
+                                          or min(got.values()) > 0),
+                f"profile_flash {label}: launches {got}")
+    profile_mfu.main()
+    attn_probe.main()
+    tools_s = time.perf_counter() - t0 - legs_s - mfu_s
+
+    cpu = _example_lines(example, ["--device", "cpu", "--quant"])
+    for argv in ([], ["--quant"]):
+        lines = _example_lines(example, argv)
+        for line in lines:
+            print(f"example mesh_allreduce {argv}: {line}", flush=True)
+        quant = "--quant" in argv
+        want = [x for x in cpu if quant or "quantized" not in x]
+        require(len(lines) == len(want) and "cuda" in lines[0]
+                and all(a == b for a, b in zip(lines[1:], want[1:])
+                        if "quantized" not in a),
+                f"mesh_allreduce {argv} on the card vs the CPU: {lines}")
+        if quant:
+            quant_line = next(x for x in lines if "quantized" in x)
+            worst = float(quant_line.split("err/bound ")[1].split()[0])
+            require("provider=quant " in quant_line and worst < 1.0,
+                    f"mesh_allreduce --quant: {quant_line}")
+    print(f"phase 4h: {time.perf_counter() - t0:.1f} s (bench legs "
+          f"{legs_s:.1f}, bench_mfu {mfu_s:.1f}, tools {tools_s:.1f}) on "
+          f"{card}", flush=True)
+    return mfu["launches"]
 
 
 def main() -> int:
@@ -1767,6 +1856,7 @@ def main() -> int:
     phase_window(card)
     phase_multislice(card)
     ckpt_counts = phase_checkpoint(fa, tfm, card)
+    bench_counts = phase_bench(fa, card)
 
     # 5. where the time goes
     if args.profile:
@@ -1788,6 +1878,7 @@ def main() -> int:
             "replaces": f"ompi_tpu/ops/flash_attention.py:{line}",
             "launches": n, "mesh_launches_a_rank": mesh_counts[name],
             "checkpoint_launches": ckpt_counts[name],
+            "bench_launches": bench_counts[name],
             **res[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

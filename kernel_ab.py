@@ -10,9 +10,10 @@ kernels there and times ``flash_fwd``, ``flash_dq`` and ``flash_dkv``
 through their wrappers at the flagship shape ([8, 8, 1024, 128] bf16,
 causal, 'bhtd'), with this checkout's functions whatever the root:
 
-- ``ms``: ``chip_smoke.time_ms``, CUDA events around calls back to back;
+- ``ms``: ``time_ms`` of ``ompi_tpu_torch/tools/bench.py`` (as
+  ``chip_smoke`` imports it), CUDA events around calls back to back;
 - ``device_ms``: the kernel's device time per launch, from torch.profiler;
-- ``host_ms``: the wrapper's host time per call (``chip_smoke.host_ms``).
+- ``host_ms``: the wrapper's host time per call (its ``host_ms``).
 
 One line per run, then each root's medians over its runs; the last line
 is one JSON object of every run and the medians, with the card's name and
@@ -71,6 +72,11 @@ def child(root: str) -> dict:
     import torch
 
     cs = _chip_smoke()
+    # chip_smoke imports this checkout's timers (ompi_tpu_torch.tools.bench):
+    # forget the package so that the root's own is imported below
+    for mod in [m for m in sys.modules
+                if m == "ompi_tpu_torch" or m.startswith("ompi_tpu_torch.")]:
+        del sys.modules[mod]
     sys.path.insert(0, str(Path(root).resolve()))
     from ompi_tpu_torch.ops import _build
     from ompi_tpu_torch.ops import flash_attention as fa

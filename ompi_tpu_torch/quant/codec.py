@@ -88,6 +88,10 @@ class BlockCodec:
         """Encoded size of an n-element vector (scales + payload)."""
         return 4 * self.nblocks(n) + self.payload_nbytes(n)
 
+    def ratio(self, n: int, itemsize: int = 4) -> float:
+        """Full-precision bytes / quantized wire bytes."""
+        return (n * itemsize) / self.wire_nbytes(n)
+
     # ------------------------------------------------------ error bounds
     def _slack(self, world: int, out_dtype) -> float:
         return 4.0 * (world + 2) * float(np.finfo(np.dtype(out_dtype)).eps)

@@ -27,7 +27,12 @@ step, and the error bound of the exact sum), the mesh window (bit for bit,
 and an Rput behind queued work), two slice controllers sharing the card
 (``chip_smoke._slice_rank``: exact but float SUM, 1e-6) and a checkpoint
 resume on the card (the losses of the run straight, within the spread of
-two such runs: 0 where the step is repeatable).
+two such runs: 0 where the step is repeatable). Last, the port's bench and
+tools: ``bench_mfu`` at the flagship width and a depth of 2 launches
+n_layers of each kernel a timed step and none under identity attention,
+``profile_flash``'s "ours" rows launch the kernels, and every entry point
+of the bench, the tools and the example raises without a card when no
+device is named (that test runs on any host).
 """
 
 import importlib.util
@@ -569,3 +574,60 @@ def test_checkpoint_resume_on_the_card(cuda, tmp_path):
     resumed = [float(step(back, t, g)[0]) for _ in range(2)]
     assert max(abs(a - b) for a, b in zip(first + resumed, runs[0])) \
         <= spread
+
+
+@pytest.mark.cuda
+def test_bench_model_step_on_the_card_launches_each_kernel(cuda):
+    """bench_mfu at the flagship width and a depth of 2: n_layers launches
+    of each kernel a timed full step, none under identity attention."""
+    from ompi_tpu_torch.tools import bench
+
+    cfg = ttfm.Config(**dict(bench.FLAGSHIP, n_layers=2))
+    before = bench.launch_counts()
+    out = bench.bench_mfu(cuda, cfg=cfg, batch=2, ksteps=2)
+    after = bench.launch_counts()
+    assert out["launches"] == {n: 2 * cfg.n_layers for n in before}
+    assert all(v == 0 for v in
+               out["ablations"]["identity_attention_launches"].values())
+    # the full step and the sum-loss ablation: a warm-up and 2 steps each
+    assert {n: after[n] - before[n] for n in before} == {
+        n: 2 * 3 * cfg.n_layers for n in before}
+    assert np.isfinite(out["first_loss"]) and out["peak_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_profile_flash_ours_rows_launch_the_kernels(cuda):
+    from ompi_tpu_torch.tools import profile_flash
+
+    rows = profile_flash.main(cuda, shape=(2, 4, 256, 64), reps=2)
+    assert rows["ours flash fwd"]["launches"]["flash_fwd"] > 0
+    assert min(rows["ours flash fwd+bwd"]["launches"].values()) > 0
+    assert rows["sdpa fwd (library)"]["launches"] == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+# entry point of the bench, the tools and the example: (its module, the
+# call a user makes with no device named)
+ENTRY_POINTS = {
+    "bench.main": ("ompi_tpu_torch.tools.bench", lambda m: m.main([])),
+    "bench.bench_mfu": ("ompi_tpu_torch.tools.bench",
+                        lambda m: m.bench_mfu()),
+    "profile_flash.main": ("ompi_tpu_torch.tools.profile_flash",
+                           lambda m: m.main()),
+    "profile_mfu.main": ("ompi_tpu_torch.tools.profile_mfu",
+                         lambda m: m.main()),
+    "attn_probe.main": ("ompi_tpu_torch.tools.attn_probe",
+                        lambda m: m.main()),
+    "mesh_allreduce.main": ("ompi_tpu_torch.examples.mesh_allreduce",
+                            lambda m: m.main([])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_bench_and_tools_raise_without_a_card(name, monkeypatch):
+    """With no device named, each entry point resolves to the card, and
+    raises where there is none (here made so on any host)."""
+    module, call = ENTRY_POINTS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call(importlib.import_module(module))

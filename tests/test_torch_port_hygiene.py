@@ -57,7 +57,10 @@ def test_the_scan_sees_a_forbidden_import():
     "ompi_tpu_torch.quant.negotiate", "ompi_tpu_torch.coll.quant",
     "ompi_tpu_torch.osc", "ompi_tpu_torch.osc.window",
     "ompi_tpu_torch.parallel.multislice",
-    "ompi_tpu_torch.runtime.checkpoint"])
+    "ompi_tpu_torch.runtime.checkpoint", "ompi_tpu_torch.tools.bench",
+    "ompi_tpu_torch.tools.profile_flash", "ompi_tpu_torch.tools.profile_mfu",
+    "ompi_tpu_torch.tools.attn_probe", "ompi_tpu_torch.examples",
+    "ompi_tpu_torch.examples.mesh_allreduce"])
 def test_modules_import_without_building(mod):
     importlib.import_module(mod)
     from ompi_tpu_torch.ops import _build
