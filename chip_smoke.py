@@ -76,7 +76,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    copy beside ``get_mem_bw``;
 4g. the quantized allreduce, the mesh window, the multi-slice comm and the
    checkpointer:
-   - ``mesh_world(8)`` on the card with ``quant.enable`` set, int8 and
+   - ``mesh_world(8)`` on the card with ``quant_enable`` set, int8 and
      fp8, at 1 MB and 64 MB a rank (f32, seed 0), against the CPU comm:
      the eligible call counted as quantized, every row equal, within one
      quantization step of the CPU's result, within the codec's error bound
@@ -111,6 +111,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``attn_probe`` (8 calls or steps a probe) once each; the
    ``mesh_allreduce`` example on the card with and without ``--quant``, its
    lines against the same example on the CPU;
+4i. the MCA variable and MPI_T layer (``phase_observe``): on
+   ``mesh_world(8)``, the allreduce at 1 KB to 64 MB a rank, bcast,
+   allgather and alltoall at 16 MB in total, two persistent Starts and an
+   i-verb, run with ``trace_enable`` off and then on: the results
+   bit-equal, the spc counts equal to the calls, the cache pvars read
+   through an MPI_T session equal to ``coll/mesh.py``'s stats, the
+   exported span tree equal to the same sequence's on a CPU comm; the
+   i-verbs of 4f traced under ``set_sync_debug_mode("error")``; four child
+   processes (``--child NAME``) whose environments set ``quant_enable``,
+   ``coll_persist_enable``, ``accelerator_cuda_mem_bw``, ``coll`` and
+   ``accelerator``, each held to what its variables select; the dispatch
+   tax with tracing off and on;
 5. with ``--profile``: the flagship forward and one training step under
    ``torch.profiler``, the device time of the 20 largest kernels and of
    every flash kernel, and the device's busy share;
@@ -1104,32 +1116,29 @@ def _shard_rows(full, spec, W):
     return torch.stack(full.chunk(W, spec.index(0)))
 
 
-def phase_async(card):
-    """Phase 4f: the mesh comm's nonblocking, persistent and partitioned
-    verbs and its reshard, on the card against the CPU comm, with device
-    ms against the memory bound; then the accelerator component."""
-    from ompi_tpu_torch.accelerator import get_module
-    from ompi_tpu_torch.coll import persist
-    from ompi_tpu_torch.core.errors import MPIError, ERR_REQUEST
+def async_cases(gen, W=COMM_W):
+    """The i-verbs of phase 4f at 64 MB a rank, from ``gen``: (verb,
+    arguments after x, CPU input, card input, the summed magnitudes of a
+    world float SUM)."""
     from ompi_tpu_torch.core.op import SUM
-    from ompi_tpu_torch.core.request import Request
-    from ompi_tpu_torch.parallel.mesh import mesh_world
 
-    W, f4 = COMM_W, 4
-    cpu, dev = mesh_world(W, "cpu"), mesh_world(W)
-    gen = torch.Generator().manual_seed(7)
     flat_c = torch.randn((W, ASYNC_ELEMS), generator=gen)
     blocks_c = flat_c.view(W, W, ASYNC_ELEMS // W)
     flat_d, blocks_d = flat_c.cuda(), blocks_c.cuda()
     sums = flat_c.abs().sum(0)
-    # (verb, arguments after x, CPU input, card input, world float SUM)
-    cases = (("allreduce", (), flat_c, flat_d, sums),
-             ("bcast", (COMM_ROOT,), flat_c, flat_d, None),
-             ("reduce", (SUM, COMM_ROOT), flat_c, flat_d, sums),
-             ("allgather", (), flat_c, flat_d, None),
-             ("alltoall", (), blocks_c, blocks_d, None),
-             ("reduce_scatter", (), blocks_c, blocks_d,
-              blocks_c.abs().sum(0)))
+    return (("allreduce", (), flat_c, flat_d, sums),
+            ("bcast", (COMM_ROOT,), flat_c, flat_d, None),
+            ("reduce", (SUM, COMM_ROOT), flat_c, flat_d, sums),
+            ("allgather", (), flat_c, flat_d, None),
+            ("alltoall", (), blocks_c, blocks_d, None),
+            ("reduce_scatter", (), blocks_c, blocks_d,
+             blocks_c.abs().sum(0)))
+
+
+def _async_iverbs(cpu, dev, cases, label="async"):
+    """Each i-verb against the CPU verb and the card's blocking verb, then
+    again behind queued sleep under ``set_sync_debug_mode("error")``: it
+    returns before the card runs it, with no host sync."""
     cycles = _sleep_cycles(ASYNC_SLEEP_MS)
     for verb, args, x_c, x_d, s in cases:
         want = getattr(cpu, verb)(x_c, *args)
@@ -1157,7 +1166,7 @@ def phase_async(card):
             torch.cuda.set_sync_debug_mode(0)
         req.Wait()
         sleep_ms = t_sleep.elapsed_time(t_woke)
-        print(f"async i{verb}: the call {call_ms:.3f} host ms behind "
+        print(f"{label} i{verb}: the call {call_ms:.3f} host ms behind "
               f"{sleep_ms:.3f} ms of queued sleep, Test() "
               f"{not pending} right after it, no host sync", flush=True)
         require(sleep_ms >= ASYNC_SLEEP_MIN_MS and call_ms < sleep_ms
@@ -1165,6 +1174,25 @@ def phase_async(card):
         require(torch.equal(req.result, first.result),
                 f"i{verb} after the sleep")
         del first, req, want
+
+
+def phase_async(card):
+    """Phase 4f: the mesh comm's nonblocking, persistent and partitioned
+    verbs and its reshard, on the card against the CPU comm, with device
+    ms against the memory bound; then the accelerator component."""
+    from ompi_tpu_torch.accelerator import get_module
+    from ompi_tpu_torch.coll import persist
+    from ompi_tpu_torch.core.errors import MPIError, ERR_REQUEST
+    from ompi_tpu_torch.mca.var import set_var
+    from ompi_tpu_torch.core.request import Request
+    from ompi_tpu_torch.parallel.mesh import mesh_world
+
+    W, f4 = COMM_W, 4
+    cpu, dev = mesh_world(W, "cpu"), mesh_world(W)
+    gen = torch.Generator().manual_seed(7)
+    cases = async_cases(gen)
+    flat_d, blocks_d = cases[0][3], cases[4][3]
+    _async_iverbs(cpu, dev, cases)
     reqs = [dev.iallreduce(flat_d), dev.iallgather(flat_d),
             dev.ireduce_scatter(blocks_d)]
     Request.Waitall(reqs)
@@ -1202,7 +1230,7 @@ def phase_async(card):
         refused = e.code
     req.Wait()
     require(refused == ERR_REQUEST, f"double Start raises ({refused})")
-    persist.donate = 1
+    set_var("coll_persist", "donate", 1)
     try:
         x0 = flat_d.clone()
         req = dev.allreduce_init(x0)
@@ -1220,7 +1248,7 @@ def phase_async(card):
                 and torch.equal(x0, flat_d),
                 "an operand-less restart runs on the init operand")
     finally:
-        persist.donate = 0
+        set_var("coll_persist", "donate", 0)
     print(f"persistent donated Start 64 MB a rank: the result in the "
           f"operand's storage; ms a Start and its Wait {donated_ms:.4f} "
           f"(the copy into the operand included) on {card}", flush=True)
@@ -1337,23 +1365,26 @@ def quant_gate(got, want, codec, what):
 
 
 def phase_quant(card):
-    """Phase 4g, quant: mesh_world(8) on the card with quant.enable set,
+    """Phase 4g, quant: mesh_world(8) on the card with quant_enable set,
     int8 and fp8, at 1 MB and 64 MB a rank, against the CPU comm; device
     ms and host us beside the plain allreduce's."""
     from ompi_tpu_torch import quant
+    from ompi_tpu_torch.mca.var import set_var
     from ompi_tpu_torch.parallel.mesh import mesh_world
 
     W, f4 = COMM_W, 4
     plain = mesh_world(W)
     require(plain.coll.providers["allreduce"] == "mesh",
-            "a comm built without quant.enable keeps the plain allreduce")
+            "a comm built without quant_enable keeps the plain allreduce")
     res = {}
     for mode in QUANT_MODES:
-        quant.enable, quant.mode = True, mode
+        set_var("quant", "enable", True)
+        set_var("quant", "mode", mode)
         try:
             cpu, dev = mesh_world(W, "cpu"), mesh_world(W)
         finally:
-            quant.enable, quant.mode = False, "int8"
+            set_var("quant", "enable", False)
+            set_var("quant", "mode", "int8")
         require(dev.coll.providers["allreduce"] == "quant"
                 and cpu.coll.providers["allreduce"] == "quant",
                 f"quant {mode}: the quantized allreduce holds the slot")
@@ -1805,15 +1836,282 @@ def phase_bench(fa, card):
     return mfu["launches"]
 
 
+# phase 4i: the MCA variable and MPI_T layer on the card
+OBS_CHILDREN = {
+    # a child process each, with these variables in its environment
+    "quant": {"OMPI_TPU_MCA_quant_enable": "1",
+              "OMPI_TPU_MCA_coll_persist_enable": "0",
+              "OMPI_TPU_MCA_accelerator_cuda_mem_bw": "1234"},
+    "quant_excluded": {"OMPI_TPU_MCA_quant_enable": "1",
+                       "OMPI_TPU_MCA_coll_persist_enable": "0",
+                       "OMPI_TPU_MCA_accelerator_cuda_mem_bw": "1234",
+                       "OMPI_TPU_MCA_coll_coll": "^quant"},
+    "accelerator_excluded": {"OMPI_TPU_MCA_accelerator_accelerator": "^cuda"},
+    "accelerator_nosuch": {"OMPI_TPU_MCA_accelerator_accelerator": "nosuch"},
+}
+OBS_STARTS = 2
+
+
+def obs_inputs(device, scale=1):
+    """phase 4i's inputs on ``device``: the allreduce at bench.py's sizes
+    a rank (``COMM_SWEEP``), bcast and allgather at 16 MB in total, the
+    alltoall's [8, 8, n] blocks; ``scale`` divides every size."""
+    W = COMM_W
+    gen = torch.Generator().manual_seed(11)
+    xs = [torch.randn((W, max(b // 4 // scale, 1)), generator=gen).to(device)
+          for b in COMM_SWEEP]
+    per = max(COMM_VERB_BYTES // 4 // W // scale, W)
+    x16 = torch.randn((W, per), generator=gen).to(device)
+    chunks = torch.randn((W, W, per // W), generator=gen).to(device)
+    return xs, x16, chunks
+
+
+def obs_sequence(world, xs, x16, chunks):
+    """The 4i sequence; returns its outputs and its calls of each verb (a
+    persistent init runs the verb once, each Start once, an i-verb once)."""
+    outs = [world.allreduce(x) for x in xs]
+    outs += [world.bcast(x16, 0), world.allgather(x16),
+             world.alltoall(chunks)]
+    req = world.allreduce_init(xs[2])
+    for _ in range(OBS_STARTS):
+        req.Start()
+        req.Wait()
+        outs.append(req.result)
+    ireq = world.iallreduce(xs[3])
+    ireq.Wait()
+    outs.append(ireq.result)
+    calls = {"allreduce": len(xs) + 1 + OBS_STARTS + 1, "bcast": 1,
+             "allgather": 1, "alltoall": 1}
+    return outs, calls
+
+
+def span_tree(events):
+    """The B/E events of one thread of a Chrome-trace export as a tree of
+    span names, [(name, [children])]; raises where they do not pair."""
+    tids = {e["tid"] for e in events if e.get("ph") in ("B", "E")}
+    require(len(tids) == 1, f"one thread's spans ({len(tids)} threads)")
+    root, stack = [], []
+    for e in events:
+        if e.get("ph") == "B":
+            node = (e["name"], [])
+            (stack[-1][1] if stack else root).append(node)
+            stack.append(node)
+        elif e.get("ph") == "E":
+            require(bool(stack) and stack[-1][0] == e["name"],
+                    f"the export's E of {e['name']} closes its B")
+            stack.pop()
+    require(not stack, "every span of the export closed")
+    return root
+
+
+def _traced_export(run, path):
+    """``run()`` with tracing on, its spans exported to ``path`` and parsed
+    back; the rings are cleared before and after."""
+    from ompi_tpu_torch.mca.var import set_var
+    from ompi_tpu_torch.runtime import trace
+
+    trace.reset()
+    set_var("trace", "enable", True)
+    try:
+        out = run()
+    finally:
+        set_var("trace", "enable", False)
+    trace.export(path)
+    trace.reset()
+    with open(path) as f:
+        return out, json.load(f)
+
+
+def obs_child(name: str) -> int:
+    """One 4i child: what its environment's variables select, as a JSON
+    line."""
+    from ompi_tpu_torch.accelerator import get_module, is_device_buffer
+    from ompi_tpu_torch.parallel.mesh import mesh_world
+    from ompi_tpu_torch.runtime import spc
+
+    out = {"child": name}
+    world = mesh_world(COMM_W)
+    x = torch.randn((COMM_W, 1 << 18), device="cuda")  # 1 MB a rank
+    if name.startswith("quant"):
+        out["provider"] = world.coll.providers["allreduce"]
+        spc.reset()
+        req = world.allreduce_init(x)
+        req.Start()
+        req.Wait()
+        out["spc"] = spc.snapshot()
+        out["frozen"] = req._frozen
+        out["start_is_the_verb"] = torch.equal(req.result, world.allreduce(x))
+        out["accelerator"] = get_module().NAME
+        out["mem_bw"] = get_module().get_mem_bw()
+    else:
+        try:
+            out["accelerator"] = get_module().NAME
+            out["is_device_buffer"] = is_device_buffer(x)
+        except RuntimeError as e:
+            out["raised"] = str(e)
+        out["stays_on_the_card"] = bool(x.is_cuda
+                                        and world.allreduce(x).is_cuda)
+    torch.cuda.synchronize()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _obs_children(children, card):
+    """Wait for 4i's children and hold each to what its variables say."""
+    res = {}
+    for name, p in children.items():
+        stdout, stderr = p.communicate(timeout=300)
+        if p.returncode != 0:
+            print(stderr[-3000:], file=sys.stderr, flush=True)
+        require(p.returncode == 0, f"4i child {name} exits 0")
+        res[name] = json.loads(stdout.strip().splitlines()[-1])
+    q, qx = res["quant"], res["quant_excluded"]
+    require(q["provider"] == "quant" and not q["frozen"]
+            and q["start_is_the_verb"] and q["accelerator"] == "cuda"
+            and q["mem_bw"] == 1234.0
+            and q["spc"] == {"allreduce": 2, "quant_allreduce": 2},
+            f"quant_enable=1, coll_persist_enable=0, cuda_mem_bw=1234: {q}")
+    require(qx["provider"] == "mesh" and not qx["frozen"]
+            and qx["start_is_the_verb"] and qx["spc"] == {"allreduce": 2},
+            f"and coll=^quant: {qx}")
+    ax, an = res["accelerator_excluded"], res["accelerator_nosuch"]
+    require(ax.get("accelerator") == "null" and ax["stays_on_the_card"]
+            and not ax["is_device_buffer"], f"accelerator=^cuda: {ax}")
+    require("no usable component" in an.get("raised", "")
+            and an["stays_on_the_card"], f"accelerator=nosuch: {an}")
+    print(f"observe children: {res} on {card}", flush=True)
+
+
+def phase_observe(card):
+    """Phase 4i: the MCA variables, spc counters, trace spans and MPI_T
+    pvars of the mesh path on the card, against the same sequence untraced
+    and on a CPU comm; the variables set in child processes' environments;
+    the i-verbs of 4f traced under sync debug mode; the dispatch tax with
+    tracing off and on."""
+    import os
+    import tempfile
+
+    from ompi_tpu_torch import mpit
+    from ompi_tpu_torch.coll import mesh as coll_mesh
+    from ompi_tpu_torch.mca.var import set_var
+    from ompi_tpu_torch.parallel.mesh import mesh_world
+    from ompi_tpu_torch.runtime import spc, trace
+    from ompi_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    children = {
+        name: subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", name],
+            env=dict(os.environ, **env), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        for name, env in OBS_CHILDREN.items()}
+    try:
+        W = COMM_W
+        dev, cpu = mesh_world(W), mesh_world(W, "cpu")
+        inputs = obs_inputs("cuda")
+        spc.reset()
+        off, calls = obs_sequence(dev, *inputs)
+        require(spc.snapshot() == calls,
+                f"spc counts {spc.snapshot()} equal the calls {calls}")
+        # every call looks up its cached callable once, a Start reuses its
+        # frozen one: one cache hit a call, no miss once warm
+        hits = sum(calls.values())
+        mpit.init_thread()
+        try:
+            sess = mpit.PvarSession()
+            handles = {k: sess.handle_alloc(mpit.pvar_get_index(
+                "coll_mesh_" + k)) for k in ("cache_hits", "cache_misses")}
+            for h in handles.values():
+                h.reset()
+            spc.reset()
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+            (on, _), doc = _traced_export(
+                lambda: obs_sequence(dev, *inputs),
+                os.path.join(tmp, "card.json"))
+            require(spc.snapshot() == calls,
+                    f"traced: spc counts {spc.snapshot()} equal the calls")
+            got = {k: h.read() for k, h in handles.items()}
+            require(got == {"cache_hits": hits, "cache_misses": 0},
+                    f"the MPI_T session's cache pvars {got}, {hits} calls")
+            absolute = {k: sess.handle_alloc(mpit.pvar_get_index(
+                "coll_mesh_" + k)).read() for k in (
+                    "cache_hits", "cache_misses", "compile_time_us")}
+            st = coll_mesh.stats
+            require(absolute == {"cache_hits": st.hits,
+                                 "cache_misses": st.misses,
+                                 "compile_time_us": st.compile_ns // 1000},
+                    f"the coll_mesh pvars {absolute} read coll/mesh.py's "
+                    f"stats")
+            sess.free()
+        finally:
+            mpit.finalize()
+        require(len(off) == len(on)
+                and all(torch.equal(a, b) for a, b in zip(off, on)),
+                "traced and untraced results are bit-equal")
+        del off, on
+        # the same sequence on a CPU comm, small: span names and nesting
+        small = obs_inputs("cpu", scale=1024)
+        obs_sequence(cpu, *small)
+        _, cpu_doc = _traced_export(lambda: obs_sequence(cpu, *small),
+                                    os.path.join(tmp, "cpu.json"))
+        tree = span_tree(doc["traceEvents"])
+        cpu_tree = span_tree(cpu_doc["traceEvents"])
+        require(tree == cpu_tree and len(tree) == hits,
+                f"the card's span tree equals the CPU comm's: {tree} vs "
+                f"{cpu_tree}")
+        names = sorted({e["name"] for e in doc["traceEvents"]
+                        if e.get("ph") in ("B", "i")})
+        print(f"observe: the 4i sequence (allreduce at {len(COMM_SWEEP)} "
+              f"sizes, bcast, allgather, alltoall at 16 MB, {OBS_STARTS} "
+              f"Starts, an iallreduce) traced and untraced bit-equal; spc "
+              f"{calls} both times; {hits} cache hits read through MPI_T; "
+              f"{len(tree)} verb spans, the tree equal to the CPU comm's; "
+              f"names {names} on {card}", flush=True)
+    finally:
+        _obs_children(children, card)
+
+    # the i-verbs of 4f, traced, under sync debug mode
+    set_var("trace", "enable", True)
+    try:
+        _async_iverbs(cpu, dev, async_cases(torch.Generator().manual_seed(7)),
+                      label="traced")
+    finally:
+        set_var("trace", "enable", False)
+        trace.reset()
+
+    # the dispatch tax, tracing off then on
+    taxes = {}
+    for traced in (False, True):
+        set_var("trace", "enable", traced)
+        try:
+            taxes[traced] = bench.bench_dispatch_tax(dev)
+        finally:
+            set_var("trace", "enable", False)
+            trace.reset()
+    off_t, on_t = taxes[False], taxes[True]
+    print(f"observe dispatch tax: prologue {off_t['prologue_us']:.3f} us "
+          f"tracing off, {on_t['prologue_us']:.3f} on (+"
+          f"{on_t['prologue_us'] - off_t['prologue_us']:.3f} us a traced "
+          f"verb); allreduce floor {off_t['ours_us']:.1f} off, "
+          f"{on_t['ours_us']:.1f} on; raw {off_t['raw_us']:.1f}, "
+          f"{on_t['raw_us']:.1f} us on {card}", flush=True)
+    print(f"phase 4i: {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the flagship forward's and training "
                          "step's kernels")
+    ap.add_argument("--child", choices=sorted(OBS_CHILDREN),
+                    help=argparse.SUPPRESS)  # phase 4i's child processes
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.child:
+        return obs_child(args.child)
     from ompi_tpu_torch import entry as entry_mod
     from ompi_tpu_torch.models import transformer as tfm
     from ompi_tpu_torch.ops import _build
@@ -1857,6 +2155,7 @@ def main() -> int:
     phase_multislice(card)
     ckpt_counts = phase_checkpoint(fa, tfm, card)
     bench_counts = phase_bench(fa, card)
+    phase_observe(card)
 
     # 5. where the time goes
     if args.profile:

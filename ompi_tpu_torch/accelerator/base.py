@@ -6,11 +6,13 @@ every accelerator component (cuda, rocm, ze, null) implements: check_addr,
 mem_alloc/release, mem_copy, IPC handles, host_register, get_device,
 device_can_access_peer, get_buffer_id, num_devices, get_mem_bw.
 
-Device memory here is a ``torch.Tensor`` on a card. The reference's MCA
-framework becomes a fixed list of components (``cuda`` at priority 50,
-``null`` at 0, in ``accelerator/cuda.py``): the first whose ``query``
-returns a module is selected, once a process, unless ``forced`` names one,
-as the reference's ``accelerator`` variable does.
+Device memory here is a ``torch.Tensor`` on a card. The ``accelerator``
+framework holds two components (``cuda`` at priority 50, ``null`` at 0, in
+``accelerator/cuda.py``); ``get_module`` selects one, once a process,
+through ``select_one`` (reference: ``accelerator/base.py:177``), so the
+``accelerator`` variable (``OMPI_TPU_MCA_accelerator_accelerator``) names
+or excludes them: ``null``, ``^cuda``, ``cuda,null``. A name that matches
+no component raises, as the reference's ``select_one`` does.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-# the component to select whatever the priorities; "" selects by priority
-forced = ""
+from ompi_tpu_torch.mca.component import framework
+
+accelerator_framework = framework(
+    "accelerator", "Device memory abstraction (CUDA/HBM buffers)")
 
 
 class AcceleratorModule:
@@ -154,37 +158,19 @@ class DeviceBuffer:
 _selected: Optional[AcceleratorModule] = None
 
 
-def _components():
-    """Every component, highest priority first."""
-    from ompi_tpu_torch.accelerator import cuda
-
-    return sorted((cuda.CudaComponent(), cuda.NullComponent()),
-                  key=lambda c: -c.PRIORITY)
-
-
 def get_module() -> AcceleratorModule:
     """The process-wide accelerator module (reference: the
     opal_accelerator_base_module singleton selected at init,
     accelerator_base_select.c)."""
     global _selected
     if _selected is None:
-        comps = _components()
-        if forced:
-            comps = [c for c in comps if c.NAME == forced]
-        for comp in comps:
-            module = comp.query()
-            if module is not None:
-                _selected = module
-                break
-        else:
-            raise RuntimeError(
-                f"no usable accelerator component (forced {forced!r}, "
-                f"components {[c.NAME for c in _components()]})")
+        _, _selected = accelerator_framework.select_one()
     return _selected
 
 
 def _reset_selection() -> None:
-    """Test hook: select again (after changing ``forced``)."""
+    """Test hook: select again (after changing the ``accelerator``
+    variable)."""
     global _selected
     _selected = None
 

@@ -5,7 +5,7 @@ The port of ``ompi_tpu/accelerator/tpu.py:45-213``, which wraps
 (accelerator_cuda.c). A device buffer is a tensor on a CUDA device; copies
 are ``Tensor.to``, and bandwidth comes from a table of published memory
 rates keyed by the device name (the reference component reads it from
-NVML).
+NVML); ``accelerator_cuda_mem_bw`` overrides it where it is not 0.
 
 IPC keeps the JAX package's contract: the handle carries dtype, shape and
 data through host memory. The dtype travels by its torch name, so bf16
@@ -21,8 +21,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ompi_tpu_torch.accelerator.base import AcceleratorModule
+from ompi_tpu_torch.accelerator.base import (AcceleratorModule,
+                                             accelerator_framework)
 from ompi_tpu_torch.core.errors import MPIError, ERR_ARG
+from ompi_tpu_torch.mca.component import Component
+from ompi_tpu_torch.mca.var import register_var
 
 # Published device memory bandwidth, GB/s (NVIDIA data sheets), by the name
 # torch.cuda.get_device_name gives; "cpu" is the fallback, as in the JAX
@@ -36,6 +39,13 @@ _MEM_BW_GBS = {
     "NVIDIA A100-SXM4-40GB": 1555.0,
     "cpu": 50.0,
 }
+
+# the counterpart of the reference's accelerator_tpu_mem_bw
+# (ompi_tpu/accelerator/tpu.py:41-43)
+_mem_bw_var = register_var(
+    "accelerator", "cuda_mem_bw", 0.0, float,
+    help="Override the device memory bandwidth estimate (GB/s); 0=auto",
+    level=7)
 
 
 class CudaAccelerator(AcceleratorModule):
@@ -70,6 +80,9 @@ class CudaAccelerator(AcceleratorModule):
                                                                    dev_b)
 
     def get_mem_bw(self, device: int = 0) -> float:
+        override = _mem_bw_var._value
+        if override:
+            return float(override)
         name = (torch.cuda.get_device_name(device) if self._type == "cuda"
                 else "cpu")
         return _MEM_BW_GBS.get(name, _MEM_BW_GBS["cpu"])
@@ -127,11 +140,11 @@ class CudaAccelerator(AcceleratorModule):
         return self.mem_copy_to_device(host)
 
 
-class CudaComponent:
+class CudaComponent(Component):
     NAME = "cuda"
     PRIORITY = 50
 
-    def query(self) -> Optional[AcceleratorModule]:
+    def query(self, **ctx: Any) -> Optional[AcceleratorModule]:
         """The module where torch sees a card, else None. Any other failure
         raises: the JAX package's component swallows every exception."""
         if not torch.cuda.is_available():
@@ -186,9 +199,13 @@ class NullAccelerator(AcceleratorModule):
         raise MPIError(ERR_ARG, "null accelerator has no IPC")
 
 
-class NullComponent:
+class NullComponent(Component):
     NAME = "null"
     PRIORITY = 0  # the last resort
 
-    def query(self) -> Optional[AcceleratorModule]:
+    def query(self, **ctx: Any) -> Optional[AcceleratorModule]:
         return NullAccelerator()
+
+
+accelerator_framework.register(CudaComponent())
+accelerator_framework.register(NullComponent())

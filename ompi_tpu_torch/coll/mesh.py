@@ -36,24 +36,40 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ompi_tpu_torch.coll.base import CollModule, coll_framework
 from ompi_tpu_torch.core import op as _op
 from ompi_tpu_torch.core.errors import (MPIError, ERR_ARG,
                                         ERR_UNSUPPORTED_OPERATION)
+from ompi_tpu_torch.mca.component import Component
+from ompi_tpu_torch.mca.var import register_pvar
+from ompi_tpu_torch.runtime import trace as _trace
 
 
 class _CacheStats:
-    """Cache telemetry of ``MeshColl._cached``: hits count resolved-callable
-    reuse, misses the builds, and build_ns their time."""
+    """Cache telemetry of ``MeshColl._cached``, the ``coll_mesh_*`` pvars:
+    hits count resolved-callable reuse, misses the builds, and compile_ns
+    the time of each build and its first call."""
 
-    __slots__ = ("hits", "misses", "build_ns")
+    __slots__ = ("hits", "misses", "compile_ns")
 
     def __init__(self):
         self.hits = 0
         self.misses = 0
-        self.build_ns = 0
+        self.compile_ns = 0
 
 
 stats = _CacheStats()
+# the trace gate, one attribute load of the live Var on every dispatch
+_tracing = _trace._enable_var
+
+register_pvar("coll_mesh", "cache_hits", lambda: stats.hits,
+              help="Collective dispatches served by a cached callable")
+register_pvar("coll_mesh", "cache_misses", lambda: stats.misses,
+              help="Collective dispatches that had to build their callable")
+register_pvar("coll_mesh", "compile_time_us",
+              lambda: stats.compile_ns // 1000,
+              help="Cumulative build and first-call time across cache "
+                   "misses")
 
 
 def _check_device_op(op: _op.Op, x=None) -> None:
@@ -171,50 +187,62 @@ def _as_int(b: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int32) if b.dtype == torch.bool else b
 
 
-VERBS = ("allreduce", "reduce", "bcast", "allgather", "alltoall",
-         "reduce_scatter_block", "scan", "exscan", "barrier", "gather",
-         "scatter", "neighbor_allgather", "neighbor_alltoall")
+class _FirstCall:
+    """A new cache entry until its first call has run: that call is timed
+    into ``stats.compile_ns`` (with the build) under the
+    ``coll.mesh.compile`` span, then the entry becomes the callable."""
+
+    __slots__ = ("raw", "comm", "key", "built_ns")
+
+    def __init__(self, raw, comm, key, built_ns: int):
+        self.raw, self.comm, self.key = raw, comm, key
+        self.built_ns = built_ns
+
+    def __call__(self, *args):
+        t0 = time.perf_counter_ns()
+        if _tracing._value:
+            with _trace.span("coll.mesh.compile", cat="coll",
+                             verb=str(self.key[0])):
+                out = self.raw(*args)
+        else:
+            out = self.raw(*args)
+        stats.compile_ns += self.built_ns + time.perf_counter_ns() - t0
+        self.comm._cache[self.key] = self.raw
+        return out
 
 
-class CollTable(dict):
-    """A communicator's collectives: verb -> the method of the module that
-    provides it (``modules``; ``providers`` names them)."""
-
-    def __init__(self, module: "MeshColl"):
-        super().__init__((v, getattr(module, v)) for v in VERBS)
-        self.modules = dict.fromkeys(self, module)
-
-    def select(self, verb: str, module) -> None:
-        """Give ``verb``'s slot to ``module``."""
-        self[verb] = getattr(module, verb)
-        self.modules[verb] = module
-
-    @property
-    def providers(self):
-        return {v: m.NAME for v, m in self.modules.items()}
-
-
-class MeshColl:
+class MeshColl(CollModule):
     """Collectives for ``MeshComm``; one callable per cache key, cached on
     the communicator."""
 
-    NAME = "mesh"
-
     # ------------------------------------------------------------ plumbing
     def _cached(self, comm, key, build):
+        """The key's callable. A miss builds it and caches a one-shot
+        ``_FirstCall`` that times its first call and then puts the callable
+        itself in the cache, as the reference's ``first_call`` does
+        (``coll/xla.py:139-171``)."""
         fn = comm._cache.get(key)
         if fn is None:
             stats.misses += 1
             t0 = time.perf_counter_ns()
-            fn = build()
-            stats.build_ns += time.perf_counter_ns() - t0
+            raw = build()
+            fn = _FirstCall(raw, comm, key, time.perf_counter_ns() - t0)
             comm._cache[key] = fn
-        else:
+        elif fn.__class__ is not _FirstCall:
+            # a wrapper still pending (its first call raised) is a retry of
+            # the build, not a hit
             stats.hits += 1
         return fn
 
     def _dispatch(self, comm, key, build, *args):
-        return self._cached(comm, key, build)(*args)
+        """Resolve (or build) the callable and run it, under the
+        ``coll.mesh.dispatch`` span when tracing."""
+        fn = self._cached(comm, key, build)
+        if _tracing._value:
+            with _trace.span("coll.mesh.dispatch", cat="coll",
+                             verb=str(key[0])):
+                return fn(*args)
+        return fn(*args)
 
     @staticmethod
     def _groups(comm):
@@ -609,3 +637,19 @@ class MeshColl:
 
 
 module = MeshColl()
+
+
+class MeshCollComponent(Component):
+    """The port of ``XlaCollComponent`` (``coll/xla.py:805-819``): the
+    module of every ``MeshComm``."""
+
+    NAME = "mesh"
+    PRIORITY = 100
+
+    def query(self, comm=None, **ctx):
+        from ompi_tpu_torch.parallel.mesh import MeshComm
+
+        return module if isinstance(comm, MeshComm) else None
+
+
+coll_framework.register(MeshCollComponent())

@@ -35,8 +35,11 @@ import torch
 
 from ompi_tpu_torch import quant as _quant
 from ompi_tpu_torch.coll import mesh as _mesh
+from ompi_tpu_torch.coll.base import CollModule, coll_framework
 from ompi_tpu_torch.coll.mesh import _check_device_op, _stack, cache_key
 from ompi_tpu_torch.core import op as _op
+from ompi_tpu_torch.mca.component import Component
+from ompi_tpu_torch.runtime import trace as _trace
 from ompi_tpu_torch.quant import negotiate as _negotiate
 from ompi_tpu_torch.quant.codec import chunk_layout
 
@@ -117,11 +120,9 @@ def quant_allreduce_body(comm, mode: str, block: int):
     return body
 
 
-class QuantMeshColl:
+class QuantMeshColl(CollModule):
     """The quantized allreduce of a quant-selected ``MeshComm``; the comm's
     other verbs stay with ``coll/mesh.py``."""
-
-    NAME = "quant"
 
     def __init__(self, plain: _mesh.MeshColl):
         self._plain = plain
@@ -151,6 +152,11 @@ class QuantMeshColl:
                 _quant.note_coll("allreduce",
                                  2 * W * (W - 1) * (-(-n // W)) * item,
                                  2 * W * (W - 1) * codec.wire_nbytes(per))
+                if _trace.enabled():
+                    # reference: coll/quant.py:108-109
+                    with _trace.span("coll.quant.allreduce", cat="coll",
+                                     comm=comm.name):
+                        return body(b)
                 return body(b)
 
             return fn
@@ -161,10 +167,23 @@ class QuantMeshColl:
 module = QuantMeshColl(_mesh.module)
 
 
-def select(comm) -> None:
-    """Put the quantized allreduce in ``comm``'s table where its verdict is
-    active (reference: ``ompi_tpu/coll/quant.py:353-361``)."""
-    st = _negotiate.for_mesh_comm(comm)
-    comm._quant_state = st
-    if st.active:
-        comm.coll.select("allreduce", module)
+class QuantCollComponent(Component):
+    """The mesh branch of ``ompi_tpu/coll/quant.py:342-361``: the quantized
+    allreduce where the comm's verdict is active. Priority 110, above
+    ``mesh`` (100), so it owns the allreduce slot there and ``mesh``'s
+    allreduce is its fallback. The verdict is kept on every ``MeshComm``
+    it is asked about (``comm._quant_state``)."""
+
+    NAME = "quant"
+    PRIORITY = 110
+
+    def query(self, comm=None, **ctx):
+        from ompi_tpu_torch.parallel.mesh import MeshComm
+
+        if not isinstance(comm, MeshComm):
+            return None
+        comm._quant_state = st = _negotiate.for_mesh_comm(comm)
+        return module if st.active else None
+
+
+coll_framework.register(QuantCollComponent())

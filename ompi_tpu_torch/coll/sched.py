@@ -25,6 +25,7 @@ import torch
 from ompi_tpu_torch.coll import persist as _persist
 from ompi_tpu_torch.core.errors import MPIError, ERR_PENDING, ERR_REQUEST
 from ompi_tpu_torch.core.request import Request, _idle
+from ompi_tpu_torch.runtime import trace as _trace
 
 
 def record_event(t) -> Optional[torch.cuda.Event]:
@@ -85,23 +86,25 @@ class MeshPersistentRequest(DeviceRequest):
     ``MeshComm``).
 
     Init ran the verb once, which built and cached its callable; with
-    ``persist.enable`` the comm froze that callable into ``dispatch``, so
-    ``Start`` calls it with no coll-table or cache lookup. ``Start(x)`` runs
+    ``coll_persist_enable`` the comm froze that callable into ``dispatch``,
+    so ``Start`` calls it with no coll-table or cache lookup; either way a
+    Start records its verb (``verb``) once, as the verb would. ``Start(x)`` runs
     on a fresh operand (the reference re-reads the buffer at Start; tensors
     are passed instead), ``Start()`` on the last one given (at first the
     init-time operand). ``result`` holds the latest Start's output.
 
-    ``donate`` (armed by ``persist.donate``) runs on a fresh operand and
+    ``donate`` (armed by ``coll_persist_donate``) runs on a fresh operand and
     writes the result into the operand's storage where the output has its
     shape and dtype, so ``result`` is that operand: the JAX package donates
     the operand's buffer to XLA, which deletes it. The init-time operand is
     never donated, so operand-less restarts stay valid."""
 
-    def __init__(self, comm, dispatch: Callable, x, frozen: bool = False,
-                 donate: Optional[Callable] = None):
+    def __init__(self, comm, dispatch: Callable, x, verb: str = "",
+                 frozen: bool = False, donate: Optional[Callable] = None):
         Request.__init__(self)
         self.persistent = True
         self._comm = comm
+        self.verb = verb
         self._dispatch = dispatch
         self._x = x
         self._frozen = frozen
@@ -118,6 +121,11 @@ class MeshPersistentRequest(DeviceRequest):
                 f"Start on still-active persistent mesh collective on "
                 f"{self._comm.name}: complete it with Wait/Test first")
         self._comm._check_usable()  # a revoked comm must not dispatch
+        if _trace.enabled():
+            # the replay boundary (reference: coll/persist.py:477-481)
+            _trace.instant("coll.persist.start", cat="coll", verb=self.verb,
+                           provider=getattr(self._comm.coll, "providers",
+                                            {}).get(self.verb))
         t0 = time.perf_counter()
         # dispatch before any state changes: a failed dispatch leaves the
         # request inactive with its operand and result as they were

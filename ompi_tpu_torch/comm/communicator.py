@@ -22,6 +22,7 @@ from ompi_tpu_torch.core.errors import (
     Errhandler,
 )
 from ompi_tpu_torch.core.group import Group
+from ompi_tpu_torch.mpit import emit
 
 PROC_NULL = -2
 UNDEFINED = -32766
@@ -51,6 +52,7 @@ class Communicator:
         self.coll = None  # verb -> collective, set by subclasses
         self.topo = None  # cartesian topology, set by the topology layer
         self._freed = False
+        emit("comm", "created", name=self.name, cid=cid, size=group.size)
 
     # ------------------------------------------------------------- queries
     @property
@@ -129,7 +131,10 @@ class Communicator:
     def Revoke(self) -> None:
         """MPIX_Comm_revoke. One controller holds every rank, so the
         revocation is local: every later operation raises ERR_REVOKED."""
+        if self.revoked:
+            return
         self.revoked = True
+        emit("comm", "revoked", name=self.name, cid=self.cid)
 
     # ------------------------------------------------------------ topology
     def Get_topology(self) -> int:

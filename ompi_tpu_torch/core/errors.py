@@ -2,7 +2,7 @@
 
 The port's copy of the part of ``ompi_tpu/core/errors.py`` that the
 mesh-mode communicator, its requests, the mesh window, the multi-slice
-comm and the checkpointer raise or carry. Error classes are
+comm, the checkpointer and MPI_T raise or carry. Error classes are
 the stable integers of ``mpi.h``; the verbs raise ``MPIError`` with the
 class.
 """
@@ -18,6 +18,7 @@ ERR_GROUP = 9
 ERR_OP = 10
 ERR_TOPOLOGY = 11
 ERR_ARG = 13
+ERR_OTHER = 16
 ERR_INTERN = 17
 ERR_PENDING = 19
 ERR_FILE = 27
@@ -34,6 +35,7 @@ _ERROR_STRINGS = {
     ERR_OP: "MPI_ERR_OP: invalid reduce operation",
     ERR_TOPOLOGY: "MPI_ERR_TOPOLOGY: invalid communicator topology",
     ERR_ARG: "MPI_ERR_ARG: invalid argument",
+    ERR_OTHER: "MPI_ERR_OTHER: known error not in list",
     ERR_INTERN: "MPI_ERR_INTERN: internal error",
     ERR_PENDING: "MPI_ERR_PENDING: pending request",
     ERR_FILE: "MPI_ERR_FILE: invalid file handle",

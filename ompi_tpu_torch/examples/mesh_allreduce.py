@@ -6,7 +6,7 @@ and collectives are tensor ops over the rank dim.
 The counterpart of the repo's ``examples/mesh_allreduce.py``: the same
 lines in the same order, over ``mesh_world(8)`` on the card (or on the CPU
 with ``--device cpu``). ``--quant`` builds the world with the block-scaled
-quantized allreduce (``ompi_tpu_torch.quant.enable``, ``min_bytes`` 1024)
+quantized allreduce (``quant_enable``, ``quant_min_bytes`` 1024)
 and prints its error against the codec's closed-form bound.
 """
 
@@ -17,8 +17,9 @@ import sys
 
 import numpy as np
 
-from ompi_tpu_torch import quant
+from ompi_tpu_torch import quant  # noqa: F401 registers the quant_* vars
 from ompi_tpu_torch.core import op as mpi_op
+from ompi_tpu_torch.mca.var import get_var, set_var
 from ompi_tpu_torch.parallel.mesh import mesh_world
 from ompi_tpu_torch.quant.codec import make_codec
 from ompi_tpu_torch.tools.bench import device_name
@@ -35,13 +36,16 @@ def main(argv=None) -> int:
     opts = ap.parse_args(argv)
 
     # a comm reads the quant settings when it is built
-    saved = quant.enable, quant.min_bytes
+    saved = get_var("quant", "enable"), get_var("quant", "min_bytes")
     if opts.quant:
-        quant.enable, quant.min_bytes = True, 1024  # demo arrays are small
+        set_var("quant", "enable", True)
+        set_var("quant", "min_bytes", 1024)  # demo arrays are small
     try:
         world = mesh_world(W, opts.device)
     finally:
-        quant.enable, quant.min_bytes = saved
+        if opts.quant:
+            set_var("quant", "enable", saved[0])
+            set_var("quant", "min_bytes", saved[1])
     print(f"mesh world over {W} rank(s) on one device: {world.device} "
           f"({device_name(world.device)})", flush=True)
 
@@ -56,7 +60,8 @@ def main(argv=None) -> int:
         # big enough to clear min_bytes: the quantized schedule engages and
         # the result must respect the closed-form bound of the codec the
         # comm was built with
-        mode, bits, block = quant.mode, quant.bits, quant.block
+        mode, bits, block = (get_var("quant", k)
+                             for k in ("mode", "bits", "block"))
         rng = np.random.RandomState(0)
         xs = (rng.randn(W, 1024) * 5).astype(np.float32)
         got = world.allreduce(world.shard(xs))[0].cpu().numpy()

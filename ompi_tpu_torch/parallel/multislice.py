@@ -21,6 +21,10 @@ user ops) gathers the leaders' rows and folds them in slice order with
 
 Launch: ``parallel/launch.run_world(fn, n_slices, device)`` starts the
 controllers; ``MultiSliceComm(slice_comm)`` in each makes the bridge.
+
+The slice verbs count in ``spc`` as the user's; the bridge hops are
+internal traffic and run under ``spc.suppressed()``, where the reference
+places them (``ompi_tpu/parallel/multislice.py:79-193``).
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ import torch.distributed as dist
 from ompi_tpu_torch.core import op as _op
 from ompi_tpu_torch.core.errors import MPIError, ERR_ARG, ERR_INTERN
 from ompi_tpu_torch.core.request import Request
+from ompi_tpu_torch.hook import register_hook
 from ompi_tpu_torch.parallel.mesh import MeshComm
+from ompi_tpu_torch.runtime import spc
 
 __all__ = ["MultiSliceComm"]
 
@@ -89,7 +95,8 @@ class MultiSliceComm:
         red = _GLOO_OPS.get(op.name)
         if red is not None and row.dtype != torch.bool:
             out = row.clone()
-            dist.all_reduce(out, red, group=self.bridge)
+            with spc.suppressed():
+                dist.all_reduce(out, red, group=self.bridge)
             return out
         rows = self._gather_rows(row)
         v = [(r != 0).to(torch.int32) if op.logical else r for r in rows]
@@ -100,7 +107,8 @@ class MultiSliceComm:
 
     def _gather_rows(self, row: torch.Tensor):
         rows = [torch.empty_like(row) for _ in range(self.n_slices)]
-        dist.all_gather(rows, row, group=self.bridge)
+        with spc.suppressed():
+            dist.all_gather(rows, row, group=self.bridge)
         return rows
 
     def _replicate(self, row: torch.Tensor) -> torch.Tensor:
@@ -125,8 +133,10 @@ class MultiSliceComm:
             row = self.slice.bcast(x, root)[0].cpu()
         else:
             row = torch.empty_like(x[0], device="cpu")  # filled by bcast
-        dist.broadcast(row, dist.get_global_rank(self.bridge, root_slice),
-                       group=self.bridge)
+        with spc.suppressed():
+            dist.broadcast(row, dist.get_global_rank(self.bridge,
+                                                     root_slice),
+                           group=self.bridge)
         return self._replicate(row)
 
     def _do_allgather(self, x):
@@ -164,14 +174,16 @@ class MultiSliceComm:
         # the block for slice t: my rows' chunks t*D..(t+1)*D
         send = x.cpu().reshape((D, S, D) + rest).transpose(0, 1).contiguous()
         recv = torch.empty_like(send)  # [S, D (source), D (mine), ...]
-        dist.all_to_all_single(recv, send, group=self.bridge)
+        with spc.suppressed():
+            dist.all_to_all_single(recv, send, group=self.bridge)
         # out[d_mine, s*D + d_src] = recv[s, d_src, d_mine]
         out = recv.permute((2, 0, 1) + tuple(range(3, recv.dim())))
         return self.slice.shard(out.reshape(x.shape))
 
     def _do_barrier(self) -> None:
         self.slice.barrier()
-        dist.barrier(group=self.bridge)
+        with spc.suppressed():
+            dist.barrier(group=self.bridge)
 
     # ------------------------------------------ nonblocking (MPI_I*)
     # The bridge hop blocks the host, so an I-verb runs the whole two-level
@@ -184,6 +196,9 @@ class MultiSliceComm:
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="multislice-nbc")
+            # reaped at finalize_top, as the reference does; mesh mode has
+            # no Finalize, so at exit as well
+            register_hook("finalize_top", self._stop_pool)
             atexit.register(self._pool.shutdown, wait=False)
         req = _FutureRequest()
 
@@ -244,9 +259,13 @@ class MultiSliceComm:
     def barrier(self) -> None:
         self._ordered(self._do_barrier)
 
+    def _stop_pool(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+
     def Free(self) -> None:
-        """Stop the worker thread (the reference stops it at
-        MPI_Finalize; the port has no Finalize hook)."""
+        """Stop the worker thread (the reference stops it at the
+        ``finalize_top`` hook; mesh mode has no Finalize)."""
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             atexit.unregister(self._pool.shutdown)

@@ -43,14 +43,14 @@ INACTIVE = QuantState(active=False, reason="quant_enable unset")
 
 
 def local_card() -> Dict[str, int]:
-    """This process's card, straight off the settings."""
+    """This process's card, straight off the ``quant_*`` variables."""
     return {
-        "enable": int(bool(_quant.enable)),
-        "bits": int(_quant.bits),
-        "block": int(_quant.block),
-        "mode": str(_quant.mode),
-        "min_bytes": int(_quant.min_bytes),
-        "strict": int(bool(_quant.strict)),
+        "enable": int(bool(_quant._enable_var._value)),
+        "bits": int(_quant._bits_var._value),
+        "block": int(_quant._block_var._value),
+        "mode": str(_quant._mode_var._value),
+        "min_bytes": int(_quant._min_bytes_var._value),
+        "strict": int(bool(_quant._strict_var._value)),
         "fp8_ok": int(hasattr(torch, "float8_e4m3fn")),
     }
 
@@ -111,7 +111,7 @@ def for_mesh_comm(comm) -> QuantState:
     """The mesh-mode verdict: local settings only. The mesh path quantizes
     whole-axis comms of at least two ranks at 8 bits; anything else takes
     the plain schedule."""
-    if not _quant.enable:
+    if not _quant._enable_var._value:
         return INACTIVE
     st = decide([local_card()] * max(comm.world_size, 1))
     if st.active and (st.bits != 8 or comm.groups is not None

@@ -22,9 +22,11 @@ headline line to stdout. What differs, and why:
   verb layer against one plain PyTorch expression with the same result on
   the same memory (``raw_*``), whose output is compared with the verb's.
 - The legs that drive process mode (``bench_plan_cache``, ``bench_p2p`` to
-  ``bench_host_paths``) are not here: the port has no process mode. Nor are
-  the spc counters and metrics gauges ``bench.py`` mirrors its results into:
-  the port has neither registry yet.
+  ``bench_host_paths``) are not here: the port has no process mode. The
+  dispatch tax goes into the spc counters ``dispatch_<verb>_layer_overhead_ns``
+  as ``bench.py:306-317`` writes it; the metrics gauges ``bench.py``
+  mirrors its results into wait for the metrics registry, which is process
+  mode.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -43,15 +45,17 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ompi_tpu_torch import quant
+from ompi_tpu_torch import quant  # noqa: F401 registers the quant_* vars
 from ompi_tpu_torch.coll.mesh import cache_key
 from ompi_tpu_torch.core.op import SUM
 from ompi_tpu_torch.device import DeviceLike, resolve_device
+from ompi_tpu_torch.mca.var import get_var, set_var
 from ompi_tpu_torch.models import transformer as tfm
 from ompi_tpu_torch.ops import flash_attention as fa
 from ompi_tpu_torch.ops.softmax_xent import softmax_xent_sum
 from ompi_tpu_torch.parallel.mesh import mesh_world
 from ompi_tpu_torch.quant.codec import make_codec
+from ompi_tpu_torch.runtime import spc
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -252,15 +256,17 @@ def bench_verbs(world, n: int, total_bytes: int = VERB_BYTES):
 
 def bench_quant_sweep(world, n: int, sizes=QUANT_BYTES):
     """The quantized allreduce (``coll/quant.py``, under the live
-    ``ompi_tpu_torch.quant`` mode, bits and block) against the fp32 one at
-    64 KB, 1 MB and 16 MB a rank (``bench.py:154-232``). Each leg has its
-    own comm, built while ``quant.enable`` is set (with ``min_bytes``
+    ``quant_mode``, ``quant_bits`` and ``quant_block``) against the fp32 one
+    at 64 KB, 1 MB and 16 MB a rank (``bench.py:154-232``). Each leg has its
+    own comm, built while ``quant_enable`` is set (with ``quant_min_bytes``
     4096) or not: a comm reads the settings when it is built. Both settings
     are restored in ``finally``. ``max_err_vs_bound`` below 1 says the
     quantized result kept the codec's closed-form bound; on one card
     ``fraction`` well below 1 is expected: no wire byte is saved there."""
-    saved = quant.enable, quant.min_bytes
-    quant.enable, quant.min_bytes = True, 4096
+    saved_enable = get_var("quant", "enable")
+    saved_min_bytes = get_var("quant", "min_bytes")
+    set_var("quant", "enable", True)
+    set_var("quant", "min_bytes", 4096)
     try:
         qworld = mesh_world(n, world.device, axis_name="mpi_quant")
         qprov = qworld.coll.providers.get("allreduce")
@@ -268,10 +274,11 @@ def bench_quant_sweep(world, n: int, sizes=QUANT_BYTES):
             return [{"skipped": f"quant path unavailable "
                                 f"(allreduce provider={qprov!r})"}]
         if world.coll.providers.get("allreduce") == "quant":
-            quant.enable = False
+            set_var("quant", "enable", False)
             world = mesh_world(n, world.device, axis_name="mpi_fp32")
-            quant.enable = True
-        codec = make_codec(quant.mode, quant.bits, quant.block)
+            set_var("quant", "enable", True)
+        codec = make_codec(get_var("quant", "mode"), get_var("quant", "bits"),
+                           get_var("quant", "block"))
         rng = np.random.RandomState(0)
         out = []
         for nbytes in sizes:
@@ -291,7 +298,8 @@ def bench_quant_sweep(world, n: int, sizes=QUANT_BYTES):
             del x, xq
         return out
     finally:
-        quant.enable, quant.min_bytes = saved
+        set_var("quant", "enable", saved_enable)
+        set_var("quant", "min_bytes", saved_min_bytes)
 
 
 def bench_dispatch_tax(world):
@@ -299,7 +307,10 @@ def bench_dispatch_tax(world):
     verb's dispatch floor against its own cached callable
     (``comm._cache``) called directly, and ``prologue_us``, the layer alone
     with every cached callable replaced by a stub for ``PROLOGUE_CALLS``
-    calls. The cache is restored in ``finally``."""
+    calls. The cache is restored in ``finally``. Each verb's layer overhead
+    is also written to the spc counter ``dispatch_<verb>_layer_overhead_ns``
+    (``bench.py:306-317``), readable through ``all_pvars()``, MPI_T and the
+    info tool."""
     n, dev = world.world_size, world.device
     x = torch.ones((n, 8192), device=dev)
     chunks = torch.ones((n, n, 64), device=dev)
@@ -307,7 +318,8 @@ def bench_dispatch_tax(world):
     # arguments after the payload)
     verbs = {
         "allreduce": (world.allreduce, x,
-                      world.coll.modules["allreduce"].allreduce_key(SUM), ()),
+                      world.coll.get("allreduce").__self__.allreduce_key(SUM),
+                      ()),
         "scan": (world.scan, x, cache_key("scan", SUM, (False,)), ()),
         "exscan": (world.exscan, x, cache_key("scan", SUM, (True,)), ()),
         "gather": (lambda a: world.gather(a, 0), x, cache_key("allgather"),
@@ -331,6 +343,11 @@ def bench_dispatch_tax(world):
         d_direct = floor_us(lambda a, f=world._cache[key], e=extra: f(a, *e),
                             arg)
         sweep[name] = {"us": d, "layer_overhead_us": d - d_direct}
+        # ns, so that the integer counter keeps sub-us resolution; the
+        # delta is recorded so that a re-run replaces the reading
+        cname = f"dispatch_{name}_layer_overhead_ns"
+        target = max(int(round((d - d_direct) * 1000)), 0)
+        spc.record(cname, target - spc.get(cname))
     d_ours = sweep["allreduce"]["us"]
 
     saved = dict(world._cache)

@@ -164,3 +164,13 @@ def attach_sub_cart(sub, topo: CartTopo, remain) -> None:
     kept = [d for d, keep in zip(topo.dims, remain) if keep]
     kept_p = [p for p, keep in zip(topo.periods, remain) if keep]
     sub.topo = CartTopo(kept or [1], kept_p or [False])
+    _reselect_coll(sub)
+
+
+def _reselect_coll(comm) -> None:
+    """The topology is attached after construction: select the comm's
+    collectives again so that a topology-aware component can claim its
+    slots (reference: ``ompi_tpu/topo/__init__.py:273-280``)."""
+    from ompi_tpu_torch.coll.base import select_coll
+
+    comm.coll = select_coll(comm)

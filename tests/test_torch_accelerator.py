@@ -30,6 +30,7 @@ from ompi_tpu_torch.accelerator import cuda as accel_cuda
 from ompi_tpu_torch.core.errors import MPIError
 from ompi_tpu_torch.runtime.topology import accelerators
 from ompi_tpu_torch.tools.info import print_header
+from tests.test_torch_mca_fixture import mca  # noqa: F401 fixture
 
 
 @pytest.fixture
@@ -165,8 +166,8 @@ def test_devicebuffer_tracks_updates(fresh_selection):
     np.testing.assert_array_equal(np.asarray(first), [0, 0])
 
 
-def test_null_component_forced(fresh_selection):
-    fresh_selection.setattr(accel_base, "forced", "null")
+def test_null_component_forced(fresh_selection, mca):
+    mca.port("accelerator", "accelerator", "null")
     m = get_module()
     assert m.NAME == "null"
     assert not m.check_addr(torch.arange(2))
@@ -177,8 +178,8 @@ def test_null_component_forced(fresh_selection):
         m.get_ipc_handle(torch.arange(2))
 
 
-def test_forcing_cuda_without_a_card_raises(fresh_selection):
-    fresh_selection.setattr(accel_base, "forced", "cuda")
+def test_forcing_cuda_without_a_card_raises(fresh_selection, mca):
+    mca.port("accelerator", "accelerator", "cuda")
     fresh_selection.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         get_module()
@@ -193,3 +194,72 @@ def test_inventory_and_header():
     text = out.getvalue()
     assert f"torch:    {torch.__version__}" in text
     assert "ompi_tpu_torch:" in text and "cuda:" in text
+
+
+# ------------------------------------------------ the accelerator variables
+@pytest.fixture
+def both_selections(monkeypatch):
+    """Select again in both packages, in this test and after it."""
+    from ompi_tpu.accelerator import base as jbase
+
+    for b in (accel_base, jbase):
+        b._reset_selection()
+    yield monkeypatch
+    for b in (accel_base, jbase):
+        b._reset_selection()
+
+
+@pytest.mark.parametrize("spec,want", [
+    ("^{self}", "null"), ("null", "null"), ("null,{self}", None),
+    ("{self},null", None), ("^nosuch", None), ("", None)])
+def test_accelerator_variable_selects_as_the_reference(both_selections,
+                                                       mca, spec, want):
+    """``accelerator`` names or excludes components, the port's ``cuda``
+    standing where the reference's ``tpu`` stands. A list restricts, and
+    priority still orders. Where the setting leaves only ``null``, both
+    packages select it; elsewhere the port selects ``cuda`` with a card and
+    ``null`` without one."""
+    mca.port("accelerator", "accelerator", spec.format(self="cuda"))
+    mca.jax("accelerator", "accelerator", spec.format(self="tpu"))
+    card = "cuda" if torch.cuda.is_available() else "null"
+    assert get_module().NAME == (want or card)
+    if want == "null":
+        assert jax_get_module().NAME == "null"
+
+
+def test_accelerator_nosuch_raises_in_both(both_selections, mca):
+    mca.both("accelerator", "accelerator", "nosuch")
+    for get in (get_module, jax_get_module):
+        with pytest.raises(RuntimeError, match="no usable component"):
+            get()
+
+
+def test_mem_bw_override(both_selections, mca, mod):
+    """``accelerator_cuda_mem_bw`` overrides ``get_mem_bw`` where it is not
+    0, as ``accelerator_tpu_mem_bw`` does the reference's."""
+    assert mod.get_mem_bw() == 50.0  # the table's "cpu" row
+    mca.port("accelerator", "cuda_mem_bw", "1234")
+    mca.jax("accelerator", "tpu_mem_bw", "1234")
+    mca.both("accelerator", "accelerator", "")
+    assert mod.get_mem_bw() == 1234.0
+    if jax_get_module().NAME == "tpu":
+        assert jax_get_module().get_mem_bw() == 1234.0
+    mca.port("accelerator", "cuda_mem_bw", 0.0)
+    assert mod.get_mem_bw() == 50.0
+
+
+def test_selection_emits_the_mpit_event(both_selections, mca):
+    from ompi_tpu_torch import mpit
+
+    mca.port("accelerator", "accelerator", "^cuda")
+    mpit.init_thread()
+    seen = []
+    h = mpit.event_handle_alloc(
+        mpit.event_get_index("mca_component_selected"),
+        lambda e: seen.append((e.data["framework"], e.data["component"])))
+    try:
+        get_module()
+    finally:
+        h.free()
+        mpit.finalize()
+    assert seen == [("accelerator", "null")]

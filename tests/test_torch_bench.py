@@ -34,11 +34,13 @@ from ompi_tpu.mca.var import get_var, set_var
 from ompi_tpu.models import transformer as jtfm
 from ompi_tpu.parallel import mesh_world as jax_mesh_world
 from ompi_tpu.quant import codec as jcodec
-from ompi_tpu_torch import quant as tquant
+from ompi_tpu_torch import quant  # noqa: F401 registers the quant_* vars
+from ompi_tpu_torch.mca.var import get_var as tget_var
 from ompi_tpu_torch.models import transformer as ttfm
 from ompi_tpu_torch.parallel.mesh import mesh_world
 from ompi_tpu_torch.quant import codec as tcodec
 from ompi_tpu_torch.tools import bench
+from tests.test_torch_mca_fixture import mca  # noqa: F401 fixture
 
 W = 8
 CPU = torch.device("cpu")
@@ -169,13 +171,10 @@ def _jax_quant(mode):
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
-def test_quant_sweep_error_ratio_equals_jax(world, mode, cheap_timers):
+def test_quant_sweep_error_ratio_equals_jax(world, mode, cheap_timers, mca):
     res, want, xs = _jax_quant(mode)
-    tquant.mode = mode
-    try:
-        rows = bench.bench_quant_sweep(world, W, sizes=(1 << 16,))
-    finally:
-        tquant.mode = "int8"
+    mca.port("quant", "mode", mode)
+    rows = bench.bench_quant_sweep(world, W, sizes=(1 << 16,))
     (row,) = rows
     assert set(row) == {"bytes", "fp32_s", "quant_s", "fraction",
                         "max_err_vs_bound"}
@@ -186,24 +185,29 @@ def test_quant_sweep_error_ratio_equals_jax(world, mode, cheap_timers):
     else:
         # results within one quantization step of JAX's move err / bound
         # by at most step / bound of some element
-        codec = tcodec.make_codec(mode, tquant.bits, tquant.block)
+        codec = tcodec.make_codec(mode, tget_var("quant", "bits"),
+                                  tget_var("quant", "block"))
         slack = np.max(codec.quant_step(res) / codec.error_bound(xs))
         assert abs(got - want) <= slack and got < 1
 
 
+def _quant_settings():
+    return tget_var("quant", "enable"), tget_var("quant", "min_bytes")
+
+
 def test_quant_settings_come_back(world, monkeypatch, cheap_timers):
-    saved = tquant.enable, tquant.min_bytes
+    saved = _quant_settings()
     bench.bench_quant_sweep(world, W, sizes=(1 << 16,))
-    assert (tquant.enable, tquant.min_bytes) == saved
+    assert _quant_settings() == saved
 
     def boom(*a, **kw):
-        assert (tquant.enable, tquant.min_bytes) == (True, 4096)
+        assert _quant_settings() == (True, 4096)
         raise RuntimeError("a leg raised")
 
     monkeypatch.setattr(bench, "paired_ms", boom)
     with pytest.raises(RuntimeError, match="a leg raised"):
         bench.bench_quant_sweep(world, W, sizes=(1 << 16,))
-    assert (tquant.enable, tquant.min_bytes) == saved
+    assert _quant_settings() == saved
 
 
 def test_quant_sweep_on_one_rank_is_skipped():
@@ -361,3 +365,35 @@ def test_sgd_step_updates_in_place_as_make_train_step_does():
     assert out is p2 and float(loss_a) == float(loss_b)
     for a, b in zip(ttfm.param_leaves(p1), ttfm.param_leaves(p2)):
         assert torch.equal(a, b) and not b.requires_grad
+
+
+def test_dispatch_tax_is_mirrored_into_spc(world, cheap_timers):
+    """Each verb's layer overhead is the spc counter
+    ``dispatch_<verb>_layer_overhead_ns`` (``bench.py:306-317``), read
+    back through ``all_pvars()``, MPI_T and the info tool; a re-run
+    replaces the reading."""
+    import io
+
+    from ompi_tpu_torch import mpit
+    from ompi_tpu_torch.mca.var import all_pvars
+    from ompi_tpu_torch.runtime import spc
+    from ompi_tpu_torch.tools import info
+
+    for _ in range(2):
+        tax = bench.bench_dispatch_tax(world)
+        for verb, row in tax["verb_sweep"].items():
+            name = f"dispatch_{verb}_layer_overhead_ns"
+            want = max(int(round(row["layer_overhead_us"] * 1000)), 0)
+            assert spc.get(name) == want
+            assert all_pvars()["spc_" + name].value == want
+    mpit.init_thread()
+    try:
+        sess = mpit.PvarSession()
+        h = sess.handle_alloc(mpit.pvar_get_index(
+            "spc_dispatch_allreduce_layer_overhead_ns"))
+        assert h.read() == spc.get("dispatch_allreduce_layer_overhead_ns")
+    finally:
+        mpit.finalize()
+    out = io.StringIO()
+    info.print_pvars(out)
+    assert "spc_dispatch_scan_layer_overhead_ns" in out.getvalue()

@@ -21,7 +21,9 @@ against ``mesh_world(8, "cpu")``, verb by verb, through ``chip_smoke.py``'s
 the JAX configuration on the card against the CPU's loss (1e-5 relative),
 and the comm's nonblocking and persistent verbs and the accelerator
 component on the card: each i-verb returns behind queued device work with
-no host sync, its request pending until the device has run it. Then the
+no host sync, its request pending until the device has run it, with trace
+spans on as well (phase 4i: ``chip_smoke.phase_observe`` and its child
+processes, which set the MCA variables in their environments). Then the
 quantized allreduce on the card against the CPU comm (one quantization
 step, and the error bound of the exact sum), the mesh window (bit for bit,
 and an Rput behind queued work), two slice controllers sharing the card
@@ -406,10 +408,27 @@ def test_i_verb_on_the_card_returns_before_the_device_runs_it(cuda, verb):
 
 
 @pytest.mark.cuda
-def test_persistent_verbs_on_the_card(cuda, monkeypatch):
+@pytest.mark.parametrize("verb", sorted(I_VERBS))
+def test_traced_i_verb_on_the_card_adds_no_host_sync(cuda, verb):
+    """The same with trace spans on: a span times the host's dispatch and
+    never waits for the card."""
+    from ompi_tpu_torch.mca.var import set_var
+    from ompi_tpu_torch.runtime import trace
+
+    set_var("trace", "enable", True)
+    try:
+        test_i_verb_on_the_card_returns_before_the_device_runs_it(cuda, verb)
+        assert trace.buffered_events() > 0
+    finally:
+        set_var("trace", "enable", False)
+        trace.reset()
+
+
+@pytest.mark.cuda
+def test_persistent_verbs_on_the_card(cuda):
     """allreduce_init freezes its callable; Starts on fresh operands equal
     the verb; a donated Start leaves the result in its operand."""
-    from ompi_tpu_torch.coll import persist
+    from ompi_tpu_torch.mca.var import set_var
 
     dev = mesh_world(8)
     x0 = torch.randn((8, 4096), device="cuda")
@@ -420,8 +439,11 @@ def test_persistent_verbs_on_the_card(cuda, monkeypatch):
         req.Start(x)
         req.Wait()
         assert torch.equal(req.result, dev.allreduce(x))
-    monkeypatch.setattr(persist, "donate", 1)
-    req = dev.allreduce_init(x0)
+    set_var("coll_persist", "donate", 1)
+    try:
+        req = dev.allreduce_init(x0)
+    finally:
+        set_var("coll_persist", "donate", 0)
     x = torch.randn((8, 4096), device="cuda")
     want = dev.allreduce(x)
     req.Start(x)
@@ -461,12 +483,15 @@ def test_quant_allreduce_on_the_card_matches_the_cpu(cuda, mode):
     the CPU comm's result and within the error bound of the exact sum;
     allreduce_init and iallreduce run the same body; reduce stays exact."""
     from ompi_tpu_torch import quant
+    from ompi_tpu_torch.mca.var import set_var
 
-    quant.enable, quant.mode = True, mode
+    set_var("quant", "enable", True)
+    set_var("quant", "mode", mode)
     try:
         cpu, dev = mesh_world(8, "cpu"), mesh_world(8)
     finally:
-        quant.enable, quant.mode = False, "int8"
+        set_var("quant", "enable", False)
+        set_var("quant", "mode", "int8")
     assert dev.coll.providers["allreduce"] == "quant"
     codec = dev._quant_state.codec
     x = torch.randn((8, 1 << 16), generator=torch.Generator().manual_seed(2))
@@ -489,6 +514,33 @@ def test_quant_allreduce_on_the_card_matches_the_cpu(cuda, mode):
         assert torch.equal(r.result.nan_to_num(), got.nan_to_num())
     y = torch.randn((8, 1 << 16), device="cuda")
     assert torch.equal(dev.reduce(y), mesh_world(8).allreduce(y))
+
+
+@pytest.mark.cuda
+def test_observe_phase_on_the_card(cuda):
+    """``chip_smoke.py`` phase 4i: the sequence traced and untraced
+    bit-equal, spc counts equal to the calls, the MPI_T cache pvars equal
+    to the stats, the span tree equal to the CPU comm's, the traced i-verbs
+    of 4f with no host sync, the children's variables, the dispatch tax
+    off and on."""
+    cs.phase_observe(torch.cuda.get_device_name(0))
+
+
+@pytest.mark.cuda
+def test_env_variables_select_in_child_processes(cuda):
+    """quant_enable=1 with coll_persist_enable=0 and cuda_mem_bw=1234; and
+    coll=^quant; accelerator=^cuda selects null; accelerator=nosuch
+    raises; the card's tensors stay on the card."""
+    import os
+    import subprocess
+    import sys
+
+    children = {name: subprocess.Popen(
+        [sys.executable, cs.__file__, "--child", name],
+        env=dict(os.environ, **env), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name, env in cs.OBS_CHILDREN.items()}
+    cs._obs_children(children, "the card")
 
 
 @pytest.mark.cuda

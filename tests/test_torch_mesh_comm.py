@@ -225,7 +225,7 @@ def test_coll_selection_is_mesh(worlds):
     assert jw.coll.providers["allreduce"] == "xla"
     assert tw.coll.providers["allreduce"] == "mesh"
     assert set(tw.coll.providers.values()) == {"mesh"}
-    assert all(fn.__self__ is tcoll.module for fn in tw.coll.values())
+    assert all(fn.__self__ is tcoll.module for fn in tw.coll.slots.values())
 
 
 def test_land_lor_on_ints(worlds):

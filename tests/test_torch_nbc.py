@@ -38,6 +38,7 @@ from ompi_tpu_torch.core.errors import (MPIError, ERR_ARG, ERR_PENDING,
 from ompi_tpu_torch.core.request import CompletedRequest, Request
 from ompi_tpu_torch.core.status import Status
 from ompi_tpu_torch.parallel.mesh import MeshComm, mesh_world
+from tests.test_torch_mca_fixture import mca  # noqa: F401 fixture
 
 W = 8
 SUM_RTOL = 1e-6
@@ -311,9 +312,9 @@ def test_mesh_init_freezes_executable(worlds):
     assert tpersist.starts == starts + 2 and tpersist.replay_us > 0
 
 
-def test_mesh_init_respects_enable_0(worlds, jax_persist, monkeypatch):
+def test_mesh_init_respects_enable_0(worlds, jax_persist, mca):
     jax_persist("enable", 0)
-    monkeypatch.setattr(tpersist, "enable", 0)
+    mca.port("coll_persist", "enable", 0)
     out = []
     for c in worlds:
         req = c.allgather_init(c.shard(_ranked(3)))
@@ -325,10 +326,9 @@ def test_mesh_init_respects_enable_0(worlds, jax_persist, monkeypatch):
     np.testing.assert_allclose(got[0], _ranked(3))
 
 
-def test_mesh_donated_start_consumes_operand(worlds, jax_persist,
-                                             monkeypatch):
+def test_mesh_donated_start_consumes_operand(worlds, jax_persist, mca):
     jax_persist("donate", 1)
-    monkeypatch.setattr(tpersist, "donate", 1)
+    mca.port("coll_persist", "donate", 1)
     jc, tc = worlds
     jx0, tx0 = jc.shard(_ranked(1)), tc.shard(_ranked(1))
     jreq, treq = jc.allreduce_init(jx0), tc.allreduce_init(tx0)
@@ -367,13 +367,12 @@ DONATE_VERBS = ["allreduce", "reduce", "bcast", "scan", "exscan",
 
 
 @pytest.mark.parametrize("verb", DONATE_VERBS)
-def test_donation_follows_jax_on_the_cpu(worlds, jax_persist, monkeypatch,
-                                         verb):
+def test_donation_follows_jax_on_the_cpu(worlds, jax_persist, mca, verb):
     """Where JAX deletes the donated operand (an output of its shape and
     dtype), the port's result lives in the operand's storage; where JAX
     keeps it (allgather, reduce_scatter), the port leaves it untouched."""
     jax_persist("donate", 1)
-    monkeypatch.setattr(tpersist, "donate", 1)
+    mca.port("coll_persist", "donate", 1)
     make = _blocks if verb in ("alltoall", "reduce_scatter") else _ranked
     jc, tc = worlds
     jreq = getattr(jc, verb + "_init")(jc.shard(make(0)))
@@ -556,3 +555,58 @@ def test_device_request_on_the_cpu_is_complete_when_returned(worlds):
     assert req._event is None and req.is_complete
     req.Wait(timeout=0.01)
     assert req.Test()
+
+
+# ----------------------------------------- the persist variables and pvars
+from ompi_tpu.runtime import spc as jspc  # noqa: E402
+from ompi_tpu_torch.mca.var import all_pvars as tall_pvars  # noqa: E402
+from ompi_tpu_torch.runtime import spc as tspc  # noqa: E402
+from ompi_tpu_torch.runtime import trace as ttrace  # noqa: E402
+
+
+@pytest.mark.parametrize("name", ["enable", "donate"])
+def test_persist_settings_are_vars(name):
+    from ompi_tpu.mca.var import all_vars as jall_vars
+    from ompi_tpu_torch.mca.var import all_vars as tall_vars
+
+    t = tall_vars()["coll_persist_" + name]
+    j = jall_vars()["coll_persist_" + name]
+    assert (t.default, t.typ, t.level) == (j.default, j.typ, j.level)
+    assert not hasattr(tpersist, name)  # no module attribute stands in
+
+
+@pytest.mark.parametrize("enable", [1, 0])
+def test_starts_count_their_verb_once_as_jax(worlds, jax_persist, mca,
+                                             enable):
+    """A Start records its verb once, frozen or not; the persist pvars read
+    the counters."""
+    jax_persist("enable", enable)
+    mca.port("coll_persist", "enable", enable)
+    jspc.reset()
+    tspc.reset()
+    plans = tall_pvars()["persist_plans"].value
+    for c in worlds:
+        req = c.reduce_scatter_init(c.shard(_blocks(0)))
+        for k in (1, 2, 3):
+            req.Start(c.shard(_blocks(k)))
+            req.Wait()
+    assert tspc.snapshot() == jspc.snapshot() == {"reduce_scatter_block": 4}
+    pv = tall_pvars()
+    assert pv["persist_plans"].value == plans + enable
+    assert (pv["persist_starts"].value, pv["persist_replay_us"].value) == \
+        (tpersist.starts, tpersist.replay_us)
+
+
+def test_start_marks_the_replay_in_the_trace(worlds, mca):
+    mca.port("trace", "enable", True)
+    ttrace.reset()
+    try:
+        tc = worlds[1]
+        req = tc.allreduce_init(tc.shard(_ranked()))
+        req.Start()
+        req.Wait()
+        marks = [e for _, e in ttrace.snapshot() if e[0] == "i"]
+    finally:
+        ttrace.reset()
+    assert [(e[2], e[4]) for e in marks] == [
+        ("coll.persist.start", {"verb": "allreduce", "provider": "mesh"})]

@@ -12,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ompi_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "dispatch_ab.py"]
 FORBIDDEN = {"jax", "jaxlib", "ompi_tpu"}
 
 
@@ -60,7 +60,13 @@ def test_the_scan_sees_a_forbidden_import():
     "ompi_tpu_torch.runtime.checkpoint", "ompi_tpu_torch.tools.bench",
     "ompi_tpu_torch.tools.profile_flash", "ompi_tpu_torch.tools.profile_mfu",
     "ompi_tpu_torch.tools.attn_probe", "ompi_tpu_torch.examples",
-    "ompi_tpu_torch.examples.mesh_allreduce"])
+    "ompi_tpu_torch.examples.mesh_allreduce", "ompi_tpu_torch.utils",
+    "ompi_tpu_torch.utils.output", "ompi_tpu_torch.utils.show_help",
+    "ompi_tpu_torch.utils.fsio", "ompi_tpu_torch.mca",
+    "ompi_tpu_torch.mca.var", "ompi_tpu_torch.mca.component",
+    "ompi_tpu_torch.hook", "ompi_tpu_torch.mpit",
+    "ompi_tpu_torch.runtime.spc", "ompi_tpu_torch.runtime.trace",
+    "ompi_tpu_torch.coll.base"])
 def test_modules_import_without_building(mod):
     importlib.import_module(mod)
     from ompi_tpu_torch.ops import _build

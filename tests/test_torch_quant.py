@@ -22,6 +22,8 @@ Tolerances:
   the summed magnitudes, as in ``tests/test_torch_mesh_comm.py``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,7 @@ from ompi_tpu.quant import codec as jcodec
 from ompi_tpu.quant import negotiate as jneg
 from ompi_tpu_torch import quant as tquant
 from ompi_tpu_torch.core import op as top
+from ompi_tpu_torch.mca.var import set_var as tset_var
 from ompi_tpu_torch.parallel.mesh import mesh_world
 from ompi_tpu_torch.quant import codec as tcodec
 from ompi_tpu_torch.quant import negotiate as tneg
@@ -52,7 +55,9 @@ def _set(mode, enable=True, min_bytes=MIN_BYTES):
     set_var("quant", "enable", enable)
     set_var("quant", "min_bytes", min_bytes)
     set_var("quant", "mode", mode)
-    tquant.enable, tquant.min_bytes, tquant.mode = enable, min_bytes, mode
+    tset_var("quant", "enable", enable)
+    tset_var("quant", "min_bytes", min_bytes)
+    tset_var("quant", "mode", mode)
 
 
 def _worlds(mode, enable=True):
@@ -344,3 +349,64 @@ def test_other_float_dtypes_keep_their_dtype(quant_worlds):
     assert t64.dtype == np.float64
     _same_as_jax(t64.astype(np.float32),
                  np.asarray(jw.allreduce(jw.shard(x64))), mode, "f64")
+
+
+# --------------------------------------------------- the quant variables
+from ompi_tpu.runtime import spc as jspc  # noqa: E402
+from ompi_tpu_torch.mca.var import all_pvars as tall_pvars  # noqa: E402
+from ompi_tpu_torch.mca.var import all_vars as tall_vars  # noqa: E402
+from ompi_tpu_torch.runtime import spc as tspc  # noqa: E402
+from tests.test_torch_mca_fixture import mca  # noqa: E402,F401 fixture
+
+
+@pytest.mark.parametrize("name", ["enable", "bits", "block", "min_bytes",
+                                  "mode", "strict"])
+def test_quant_settings_are_the_references_vars(name):
+    from ompi_tpu.mca.var import all_vars as jall_vars
+
+    t, j = tall_vars()["quant_" + name], jall_vars()["quant_" + name]
+    assert (t.default, t.typ, t.enum_values, t.level) == \
+        (j.default, j.typ, j.enum_values, j.level)
+    assert not hasattr(tquant, name)  # no module attribute stands in
+
+
+@pytest.mark.parametrize("setting,want", [
+    ({"enable": True}, "quant"), ({"enable": "on", "bits": 4}, "mesh"),
+    ({"enable": True, "mode": "fp8"}, "quant"), ({"enable": False}, "mesh"),
+    ({"enable": True, "block": 32}, "quant")])
+def test_the_vars_drive_selection_as_jax(mca, setting, want):
+    for k, v in setting.items():
+        mca.both("quant", k, v)
+    _axis[0] += 1
+    jw = jax_mesh_world(jax.devices()[:W], axis_name=f"tqv{_axis[0]}")
+    tw = mesh_world(W, "cpu")
+    assert tw.coll.providers["allreduce"] == want
+    assert jw.coll.providers["allreduce"] == want.replace("mesh", "xla")
+    if want == "quant":  # the same verdict
+        assert dataclasses.asdict(tw._quant_state) == {
+            f.name: getattr(jw._quant_state, f.name)
+            for f in dataclasses.fields(tneg.QuantState)}
+    else:
+        assert not tw._quant_state.active
+
+
+def test_counters_are_pvars_and_spc(mca, counters):
+    mca.both("quant", "enable", True)
+    mca.both("quant", "min_bytes", 1024)
+    _axis[0] += 1
+    jw = jax_mesh_world(jax.devices()[:W], axis_name=f"tqv{_axis[0]}")
+    tw = mesh_world(W, "cpu")
+    jspc.reset()
+    tspc.reset()
+    xs = np.random.RandomState(3).randn(W, 512).astype(np.float32)
+    small = xs[:, :8]  # under min_bytes: the plain path, uncounted
+    for c in (jw, tw):
+        c.allreduce(c.shard(xs))
+        c.allreduce(c.shard(xs))
+        c.allreduce(c.shard(small))
+    pv = tall_pvars()
+    assert {k: pv["quant_" + k].value for k in tquant.counters()} == \
+        tquant.counters()
+    assert tquant.counters()["colls"] == 2
+    assert tspc.snapshot() == jspc.snapshot() == {"allreduce": 3,
+                                                  "quant_allreduce": 2}

@@ -16,8 +16,9 @@ import sys
 
 import pytest
 
-from ompi_tpu_torch import quant as tquant
+from ompi_tpu_torch import quant  # noqa: F401 registers the quant_* vars
 from ompi_tpu_torch.examples import mesh_allreduce as tex
+from ompi_tpu_torch.mca.var import get_var as tget_var
 from ompi_tpu_torch.models import transformer as ttfm
 from ompi_tpu_torch.tools import attn_probe, profile_flash, profile_mfu
 
@@ -80,10 +81,11 @@ def jax_example():
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_example_prints_the_jax_examples_lines(jax_example, quant, capsys):
-    saved = tquant.enable, tquant.min_bytes
+    saved = tget_var("quant", "enable"), tget_var("quant", "min_bytes")
     assert tex.main(["--device", "cpu"] + (["--quant"] if quant else [])) \
         == 0
-    assert (tquant.enable, tquant.min_bytes) == saved
+    assert (tget_var("quant", "enable"),
+            tget_var("quant", "min_bytes")) == saved
     lines = capsys.readouterr().out.splitlines()
     want = jax_example[quant]
     assert lines[0].startswith("mesh world over 8 rank(s) on one device: cpu")
