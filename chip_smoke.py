@@ -123,6 +123,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``coll_persist_enable``, ``accelerator_cuda_mem_bw``, ``coll`` and
    ``accelerator``, each held to what its variables select; the dispatch
    tax with tracing off and on;
+4j. typed buffers (``phase_typed``): the native runs engine built with
+   ``g++`` from ``ompi_tpu_torch/native/convertor.cpp`` (its path and
+   build seconds printed); eight cases of 64 MB packed payload made on the
+   card from a seed: every other f32 column of a [4096, 8192] matrix; the
+   [4096, 4096] block of an [8192, 8192] f32 matrix (a row's subarray,
+   4096 rows); FLOAT_INT pairs; DOUBLE_INT resized to the 16 bytes of a C
+   struct; an int32 indexed type of 64 seeded blocks; FLOAT64 resized to
+   24 bytes; bf16 and fp16 vectors of every other element. Each is staged
+   to the host through the accelerator component (bf16 through an int16
+   view), packed by the native engine and by the numpy path (bit-equal),
+   the packed bytes copied back equal to a torch selection of the same
+   elements on the card, unpacked (native and numpy, equal) into a zeroed
+   buffer whose copy on the card equals the masked copy made there, and
+   drained by a ``Convertor`` in 64 KB and 1 MB fragments with
+   ``set_position`` out of order (equal to the whole pack); external32 of
+   f32, f64 and complex64 at 64 MB against numpy's big-endian ``astype``;
+   then the progress engine (a parked ``progress_until`` woken by a
+   socketpair write and by ``poke``, a ``ProgressThread`` that parks and
+   stops, ``Grequest`` and ``Prequest``); one JSON line with each case's
+   native and numpy pack and unpack GB/s, fragment GB/s, D2H and H2D GB/s
+   and the on-card gather's ms;
 5. with ``--profile``: the flagship forward and one training step under
    ``torch.profiler``, the device time of the 20 largest kernels and of
    every flash kernel, and the device's busy share;
@@ -2099,6 +2120,311 @@ def phase_observe(card):
           flush=True)
 
 
+TYPED_ROWS = 4096  # 64 MB of packed payload a case, the size of 4f and 4g
+TYPED_FRAGS = (64 << 10, 1 << 20)
+TYPED_EXTERNAL = (("float32", ">f4"), ("float64", ">f8"),
+                  ("complex64", ">c8"))
+TYPED_PARK_US = 3_000_000  # the idle-block cap of the progress checks
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def typed_cases(R, device, gen):
+    """Phase 4j's cases at ``R`` rows (4096: 64 MB packed each, 4f's size),
+    from ``gen``: name -> (tensor on ``device``, its datatype, count, the
+    byte offset of the first element, the index ``sel`` that selects the
+    same elements on the device)."""
+    import numpy as np
+
+    from ompi_tpu_torch.core import datatype as D
+
+    C, all_ = 2 * R, slice(None)
+    vec = D.FLOAT32.Create_vector(R, 1, 2).Create_resized(0, C * 4)
+    r0, c0 = R // 2, R // 4 + 3
+    # the [R, R] block at (r0, c0) of a [C, C] matrix: the subarray of one
+    # row's columns [c0, c0 + R), R rows from row r0
+    sub = D.FLOAT32.Create_subarray([C], [R], [c0])
+    n_pairs = R * R // 2
+    v = torch.rand(n_pairs, generator=gen, device=device)
+    i = torch.randint(-2**31, 2**31 - 1, (n_pairs,), generator=gen,
+                      device=device, dtype=torch.int32)
+    n_dint = R * R * 4 // 12
+    dint = torch.randint(-2**31, 2**31 - 1, (n_dint, 4), generator=gen,
+                         device=device, dtype=torch.int32)
+    dint[:, :2] = torch.rand(n_dint, generator=gen, device=device,
+                             dtype=torch.float64).view(torch.int32).view(
+                                 n_dint, 2)
+    # 64 blocks (fewer below 256 rows) of seeded lengths summing to R, each
+    # followed by a gap of its own length
+    rng = np.random.default_rng(11)
+    n_blocks = min(64, R // 4)
+    cuts = np.sort(rng.choice(np.arange(1, R), n_blocks - 1, replace=False))
+    lens = np.diff(np.concatenate([[0], cuts, [R]])).tolist()
+    disps = (2 * np.concatenate([[0], np.cumsum(lens)[:-1]])).tolist()
+    idx = torch.cat([torch.arange(d, d + n) for d, n in zip(disps, lens)])
+    half = D.BFLOAT16.Create_vector(C, 1, 2).Create_resized(0, 2 * C * 2)
+    return {
+        "vector": (torch.rand(R, C, generator=gen, device=device), vec, R,
+                   0, (all_, slice(None, None, 2))),
+        "subarray": (torch.rand(C, C, generator=gen, device=device), sub, R,
+                     r0 * C * 4, (slice(r0, r0 + R), slice(c0, c0 + R))),
+        "float_int": (torch.stack([v.view(torch.int32), i], 1), D.FLOAT_INT,
+                      n_pairs, 0, (all_, all_)),
+        # DOUBLE_INT's extent is its 12 bytes; resized to the 16 of an
+        # array of C structs {double; int;} it leaves a 4-byte hole
+        "double_int": (dint, D.DOUBLE_INT.Create_resized(0, 16), n_dint, 0,
+                       (all_, slice(0, 3))),
+        "indexed": (torch.randint(-2**31, 2**31 - 1, (R, C), generator=gen,
+                                  device=device, dtype=torch.int32),
+                    D.INT32.Create_indexed(lens, disps).Create_resized(
+                        0, C * 4), R, 0, (all_, idx.to(device))),
+        "resized": (torch.rand(R * R // 2, 3, generator=gen, device=device,
+                               dtype=torch.float64),
+                    D.FLOAT64.Create_resized(0, 24), R * R // 2, 0,
+                    (all_, 0)),
+        "bf16_vector": (torch.randn(R, 2 * C, generator=gen, device=device,
+                                    dtype=torch.bfloat16), half, R, 0,
+                        (all_, slice(None, None, 2))),
+        "fp16_vector": (torch.randn(R, 2 * C, generator=gen, device=device,
+                                    dtype=torch.float16),
+                        D.FLOAT16.Create_vector(C, 1, 2).Create_resized(
+                            0, 2 * C * 2), R, 0,
+                        (all_, slice(None, None, 2))),
+    }
+
+
+def _typed_case(name, t, dt, count, offset, sel, device, sync, rng):
+    """One case of phase 4j: stage, pack (native and numpy), check against
+    the device's selection, unpack, drain with a Convertor out of order
+    (the send side: the receive side's fragments are the card tests')."""
+    import numpy as np
+
+    from ompi_tpu_torch.accelerator import get_module, stage_to_host
+    from ompi_tpu_torch.core import convertor as cv
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    total = count * dt.size
+    # bf16 stages through an int16 view: stage_to_host refuses bf16
+    view = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    host, d2h_s = timed(lambda: stage_to_host(view))
+    src = host.reshape(-1).view(np.uint8)[offset:]
+    native = cv._NATIVE_MIN_BYTES
+    p_native, pack_s = timed(lambda: cv.pack(src, count, dt))
+    cv._NATIVE_MIN_BYTES = 1 << 62
+    try:
+        p_numpy, np_pack_s = timed(lambda: cv.pack(src, count, dt))
+        require(np.array_equal(p_native, p_numpy),
+                f"typed {name}: the native pack equals the numpy path's")
+        del p_numpy
+        dst_np = np.zeros(host.nbytes, np.uint8)
+        _, np_unpack_s = timed(
+            lambda: cv.unpack(p_native, dst_np[offset:], count, dt))
+    finally:
+        cv._NATIVE_MIN_BYTES = native
+    require(p_native.nbytes == total, f"typed {name}: {p_native.nbytes} "
+            f"packed bytes, {total} expected")
+    # a contiguous type packs to a borrowed view of the read-only staged
+    # array: copy it first (untimed), torch warns on a read-only source
+    h2d_src = p_native if p_native.flags.writeable else p_native.copy()
+    # .to(t.device): a no-op on the card; where the CPU rehearses this on
+    # a host with a card, the accelerator module copies to the card
+    packed_dev, h2d_s = timed(
+        lambda: get_module().mem_copy_to_device(h2d_src).to(t.device))
+    require(torch.equal(packed_dev, _bytes(t[sel])),
+            f"typed {name}: the packed bytes equal the device's selection")
+    gather_ms = time_ms(lambda: t[sel].contiguous(), iters=10, warmup=2,
+                        device=device)
+    dst = np.zeros(host.nbytes, np.uint8)
+    _, unpack_s = timed(lambda: cv.unpack(p_native, dst[offset:], count, dt))
+    require(np.array_equal(dst, dst_np),
+            f"typed {name}: the native unpack equals the numpy path's")
+    del dst_np
+    masked = torch.zeros_like(t)
+    masked[sel] = t[sel]
+    require(torch.equal(get_module().mem_copy_to_device(dst).to(t.device),
+                        _bytes(masked)),
+            f"typed {name}: the unpacked buffer equals the masked copy")
+    frag_gbs = {}
+    for frag in TYPED_FRAGS:
+        starts = rng.permutation(np.arange(0, total, frag))
+        out = np.empty(total, np.uint8)
+        conv = cv.Convertor(src, count, dt, for_send=True)
+
+        def drain():
+            for s in starts:
+                conv.set_position(int(s))
+                out[s:s + frag] = conv.pack_frag(frag)
+
+        _, frag_s = timed(drain)
+        require(np.array_equal(out, p_native),
+                f"typed {name}: {frag >> 10} KB fragments out of order "
+                f"equal the whole pack")
+        frag_gbs[frag] = total / frag_s / 1e9
+    gbs = lambda s: round(total / s / 1e9, 3)  # noqa: E731
+    return {"packed_bytes": total, "native_pack_gbs": gbs(pack_s),
+            "numpy_pack_gbs": gbs(np_pack_s),
+            "native_unpack_gbs": gbs(unpack_s),
+            "numpy_unpack_gbs": gbs(np_unpack_s),
+            "frag_64k_pack_gbs": round(frag_gbs[TYPED_FRAGS[0]], 3),
+            "frag_1m_pack_gbs": round(frag_gbs[TYPED_FRAGS[1]], 3),
+            "d2h_gbs": round(host.nbytes / d2h_s / 1e9, 3),
+            "h2d_gbs": gbs(h2d_s), "gather_ms": round(gather_ms, 4)}
+
+
+def typed_progress() -> dict:
+    """The progress engine on this host: a parked ``progress_until`` woken
+    by a socketpair write, then by ``poke``; a ``ProgressThread`` that parks
+    and stops; ``Grequest`` and ``Prequest`` completion."""
+    import socket
+    import threading
+
+    from ompi_tpu_torch.core.request import Grequest, Prequest
+    from ompi_tpu_torch.mca.var import all_pvars, get_var, set_var
+    from ompi_tpu_torch.runtime import progress as P
+
+    tx, rx = socket.socketpair()
+    rx.setblocking(False)
+    got = []
+
+    def drain() -> int:
+        try:
+            data = rx.recv(4096)
+        except BlockingIOError:
+            return 0
+        got.append(data)
+        return 1
+
+    blocks = lambda: all_pvars()["runtime_progress_idle_blocks"].value  # noqa: E731
+    cap = get_var("runtime", "idle_block_us")
+    P.register_progress(drain)
+    P.set_idle_sources([lambda: ([rx.fileno()], [])])
+    set_var("runtime", "idle_block_us", TYPED_PARK_US)
+    out = {}
+    try:
+        b0 = blocks()
+        timer = threading.Timer(0.2, lambda: tx.send(b"wake"))
+        timer.start()
+        t0 = time.perf_counter()
+        ok = P.progress_until(lambda: bool(got), timeout=10)
+        out["frame_wake_s"] = round(time.perf_counter() - t0, 4)
+        timer.join()
+        require(ok and got == [b"wake"] and out["frame_wake_s"] < 1.5
+                and blocks() > b0,
+                f"progress: a parked progress_until woken by a frame "
+                f"({out['frame_wake_s']} s)")
+        flag = []
+        timer = threading.Timer(0.2, lambda: (flag.append(1), P.poke()))
+        timer.start()
+        t0 = time.perf_counter()
+        ok = P.progress_until(lambda: bool(flag), timeout=10)
+        out["poke_wake_s"] = round(time.perf_counter() - t0, 4)
+        timer.join()
+        require(ok and out["poke_wake_s"] < 1.5,
+                f"progress: poke wakes a parked wait ({out['poke_wake_s']} s)")
+        b0 = blocks()
+        pt = P.ProgressThread()
+        pt.start()
+        thread = pt._thread
+        time.sleep(0.6)
+        t0 = time.perf_counter()
+        pt.stop()
+        out["thread_stop_s"] = round(time.perf_counter() - t0, 4)
+        require(not thread.is_alive() and out["thread_stop_s"] < 1.0
+                and blocks() > b0,
+                f"progress: a parked ProgressThread stops "
+                f"({out['thread_stop_s']} s)")
+        g = Grequest()
+        timer = threading.Timer(0.1, g.Complete)
+        timer.start()
+        t0 = time.perf_counter()
+        g.Wait(timeout=10)
+        out["grequest_wait_s"] = round(time.perf_counter() - t0, 4)
+        timer.join()
+        fired = []
+        p = Prequest(lambda r: (fired.append(1), r._set_complete(0)))
+        for _ in range(2):
+            p.Start()
+            p.Wait(timeout=10)
+        require(g.is_complete and fired == [1, 1] and p.is_complete,
+                "progress: Grequest and Prequest complete")
+    finally:
+        set_var("runtime", "idle_block_us", cap)
+        P.set_idle_sources([])
+        P.unregister_progress(drain)
+        tx.close()
+        rx.close()
+    return out
+
+
+def phase_typed(card, device="cuda", rows=TYPED_ROWS):
+    """Phase 4j: typed buffers on the card. CUDA tensors staged to the
+    host, packed and unpacked through the datatype engine (the native runs
+    engine and the numpy path, bit-equal), held against a torch expression
+    on the card that selects the same elements; Convertor fragments out of
+    order; external32 against numpy's big-endian ``astype``; then the
+    progress engine on this host."""
+    import numpy as np
+
+    from ompi_tpu_torch import native
+    from ompi_tpu_torch.accelerator import stage_to_host
+    from ompi_tpu_torch.core import datatype as D
+    from ompi_tpu_torch.core import external32 as x32
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    lib_path = native.library_path()
+    fresh = not lib_path.exists()
+    tb = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - tb
+    print(f"typed: native engine {lib_path} "
+          f"{'built' if fresh else 'reused'} in {build_s:.2f} s", flush=True)
+    gen = torch.Generator(device=device).manual_seed(11)
+    rng = np.random.default_rng(11)
+    cases = {}
+    for name, (t, dt, count, offset, sel) in typed_cases(
+            rows, device, gen).items():
+        dt.Commit()
+        cases[name] = _typed_case(name, t, dt, count, offset, sel, device,
+                                  sync, rng)
+        del t
+    external = {}
+    n = rows * rows  # 64 MB of f32 at 4096 rows
+    for name, big in TYPED_EXTERNAL:
+        tdt = getattr(torch, name)
+        t = torch.randn(n * 4 // tdt.itemsize, generator=gen, device=device,
+                        dtype=tdt)
+        host = stage_to_host(t)
+        out = np.empty(host.nbytes, np.uint8)
+        dt = D.from_numpy_dtype(tdt)
+        ts = time.perf_counter()
+        end = x32.pack_external("external32", host, host.size, dt, out, 0)
+        secs = time.perf_counter() - ts
+        require(end == host.nbytes and out.tobytes() ==
+                host.astype(big).tobytes(),
+                f"typed: external32 {name} equals numpy's {big} astype")
+        external[name] = round(host.nbytes / secs / 1e9, 3)
+    progress = typed_progress()
+    secs = time.perf_counter() - t0
+    print(json.dumps({"typed_buffers": {
+        "card": card, "rows": rows, "library": str(lib_path.name),
+        "native_build_s": round(build_s, 3), "built": fresh, "cases": cases,
+        "external32_pack_gbs": external, "progress": progress,
+        "phase_s": round(secs, 1)}}), flush=True)
+    print(f"phase 4j: {len(cases)} cases bit-equal native/numpy/device at "
+          f"{rows * rows * 4 >> 20} MB packed each, external32 of "
+          f"{len(external)} types, the progress engine, {secs:.1f} s on "
+          f"{card}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2156,6 +2482,7 @@ def main() -> int:
     ckpt_counts = phase_checkpoint(fa, tfm, card)
     bench_counts = phase_bench(fa, card)
     phase_observe(card)
+    phase_typed(card)
 
     # 5. where the time goes
     if args.profile:

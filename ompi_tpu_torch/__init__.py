@@ -10,9 +10,51 @@ for tensors that lie on the CPU.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``device.resolve_device``).
+
+The typed-buffer names of ``ompi_tpu`` are exported here as there:
+``Datatype``, the predefined types and their aliases, ``Info``, and
+``Pack``/``Unpack``/``Pack_size`` with their external32 forms.
 """
 
 from ompi_tpu_torch.version import __version__
 from ompi_tpu_torch.device import resolve_device
+from ompi_tpu_torch.core.datatype import (
+    Datatype,
+    BYTE,
+    CHAR,
+    INT8,
+    INT16,
+    INT32,
+    INT64,
+    UINT8,
+    UINT16,
+    UINT32,
+    UINT64,
+    FLOAT16,
+    BFLOAT16,
+    FLOAT32,
+    FLOAT64,
+    COMPLEX64,
+    COMPLEX128,
+    BOOL,
+    INT,
+    LONG,
+    FLOAT,
+    DOUBLE,
+)
+from ompi_tpu_torch.core.info import Info
+from ompi_tpu_torch.core.external32 import (
+    mpi_pack as Pack,
+    mpi_unpack as Unpack,
+    pack_size as Pack_size,
+    pack_external as Pack_external,
+    unpack_external as Unpack_external,
+    pack_external_size as Pack_external_size,
+)
 
-__all__ = ["__version__", "resolve_device"]
+__all__ = [
+    "__version__", "resolve_device", "Datatype", "BYTE", "CHAR", "INT8",
+    "INT16", "INT32", "INT64", "UINT8", "UINT16", "UINT32", "UINT64",
+    "FLOAT16", "BFLOAT16", "FLOAT32", "FLOAT64", "COMPLEX64", "COMPLEX128",
+    "BOOL", "INT", "LONG", "FLOAT", "DOUBLE", "Info", "Pack", "Unpack",
+    "Pack_size", "Pack_external", "Unpack_external", "Pack_external_size"]

@@ -24,7 +24,7 @@ import torch
 
 from ompi_tpu_torch.coll import persist as _persist
 from ompi_tpu_torch.core.errors import MPIError, ERR_PENDING, ERR_REQUEST
-from ompi_tpu_torch.core.request import Request, _idle
+from ompi_tpu_torch.core.request import IdleBackoff, Request
 from ompi_tpu_torch.runtime import trace as _trace
 
 
@@ -72,10 +72,11 @@ class DeviceRequest(Request):
                 self._event.synchronize()
         else:
             t0 = time.monotonic()
+            backoff = IdleBackoff()
             while not self.is_complete:
                 if time.monotonic() - t0 > timeout:
                     raise MPIError(ERR_PENDING, "Wait timed out")
-                _idle(t0)
+                backoff.step(False)
         if not self._complete.is_set():
             self._set_complete(0)
         self._finish(status)

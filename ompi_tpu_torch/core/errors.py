@@ -2,7 +2,7 @@
 
 The port's copy of the part of ``ompi_tpu/core/errors.py`` that the
 mesh-mode communicator, its requests, the mesh window, the multi-slice
-comm, the checkpointer and MPI_T raise or carry. Error classes are
+comm, the checkpointer, MPI_T and the datatype engine raise or carry. Error classes are
 the stable integers of ``mpi.h``; the verbs raise ``MPIError`` with the
 class.
 """
@@ -12,12 +12,15 @@ from __future__ import annotations
 from typing import Callable
 
 SUCCESS = 0
+ERR_BUFFER = 1
+ERR_TYPE = 3
 ERR_RANK = 6
 ERR_REQUEST = 7
 ERR_GROUP = 9
 ERR_OP = 10
 ERR_TOPOLOGY = 11
 ERR_ARG = 13
+ERR_TRUNCATE = 15
 ERR_OTHER = 16
 ERR_INTERN = 17
 ERR_PENDING = 19
@@ -29,12 +32,15 @@ ERR_REVOKED = 77
 
 _ERROR_STRINGS = {
     SUCCESS: "MPI_SUCCESS: no error",
+    ERR_BUFFER: "MPI_ERR_BUFFER: invalid buffer pointer",
+    ERR_TYPE: "MPI_ERR_TYPE: invalid datatype argument",
     ERR_RANK: "MPI_ERR_RANK: invalid rank",
     ERR_REQUEST: "MPI_ERR_REQUEST: invalid request",
     ERR_GROUP: "MPI_ERR_GROUP: invalid group",
     ERR_OP: "MPI_ERR_OP: invalid reduce operation",
     ERR_TOPOLOGY: "MPI_ERR_TOPOLOGY: invalid communicator topology",
     ERR_ARG: "MPI_ERR_ARG: invalid argument",
+    ERR_TRUNCATE: "MPI_ERR_TRUNCATE: message truncated",
     ERR_OTHER: "MPI_ERR_OTHER: known error not in list",
     ERR_INTERN: "MPI_ERR_INTERN: internal error",
     ERR_PENDING: "MPI_ERR_PENDING: pending request",

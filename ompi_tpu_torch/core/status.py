@@ -1,9 +1,10 @@
-"""MPI_Status: the fields that the mesh-mode requests set.
+"""MPI_Status.
 
-The port's copy of the part of ``ompi_tpu/core/status.py`` that requests
-fill in. The reference's ``Get_count`` and ``Get_elements`` read a
-datatype's size; the port has no datatype layer (its payloads are tensors,
-which carry their own dtype), so they are not copied.
+The port of ``ompi_tpu/core/status.py`` (reference: the status fields of
+ompi/request plus MPI_Get_count semantics, ompi/mpi/c/get_count.c.in).
+``_nbytes`` holds received wire bytes; ``Get_count`` divides by the
+datatype size, returning UNDEFINED when the byte count is not a whole
+number of elements.
 """
 
 from __future__ import annotations
@@ -29,6 +30,27 @@ class Status:
 
     def Get_error(self) -> int:
         return self.error
+
+    def Get_count(self, datatype) -> int:
+        if datatype.size == 0:
+            return 0
+        if self._nbytes % datatype.size:
+            return UNDEFINED
+        return self._nbytes // datatype.size
+
+    def Get_elements(self, datatype) -> int:
+        """Count of *basic* elements received (may be a partial datatype)."""
+        if not datatype.typemap:
+            return 0
+        full, rem = divmod(self._nbytes, datatype.size)
+        n = full * len(datatype.typemap)
+        # walk the typemap for the trailing partial element
+        for d, _ in datatype.typemap:
+            if rem < d.itemsize:
+                break
+            rem -= d.itemsize
+            n += 1
+        return n
 
     def Is_cancelled(self) -> bool:
         return self.cancelled

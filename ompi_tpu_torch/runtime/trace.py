@@ -318,6 +318,35 @@ register_pvar("trace", "buffered_events", buffered_events,
               help="Events currently held in the trace ring buffers")
 
 _exported = False
+_fatal_exporting = [False]
+
+
+def export_on_fatal() -> None:
+    """The fatal-path export: write what the rings hold NOW.
+
+    A clean exit reaches ``_maybe_export`` at exit, but an ``os._exit``
+    after an abort, or an unhandled exception killing the progress thread
+    just before the job is torn down, never runs atexit. Re-entrancy
+    guarded (an export failure aborting again must not recurse), never
+    raises, and does not mark the exit export done: a later clean export
+    holds more events and replaces this file."""
+    with _reg_lock:
+        if _fatal_exporting[0]:
+            return
+        _fatal_exporting[0] = True
+    try:
+        if not buffered_events():
+            return
+        try:
+            _warn_overflow()
+        except Exception:
+            pass
+        export()
+    except Exception:
+        pass  # evidence is best-effort on the way down
+    finally:
+        with _reg_lock:
+            _fatal_exporting[0] = False
 
 
 def _maybe_export() -> None:
