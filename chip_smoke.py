@@ -147,6 +147,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 5. with ``--profile``: the flagship forward and one training step under
    ``torch.profiler``, the device time of the 20 largest kernels and of
    every flash kernel, and the device's busy share;
+4k. the diagnostic and fault planes (``phase_diagnostics``): the host
+   topology (``discover`` against the affinity mask and sysfs's NUMA
+   nodes, the card in ``accelerators()`` as nvidia-smi names it, the
+   cpusets of ``mesh_world(8)``'s ranks, ``bind_rank`` read back in a
+   child, ``--child bind_rank``); with ``metrics_enable``, phase 4i's
+   sequence on ``mesh_world(8)``: the snapshot's counters equal to spc's,
+   its mesh cache pvars to ``coll/mesh.py``'s stats, the five bench gauges
+   of ``bench_quant_sweep`` and ``bench_dispatch_tax`` (the bench's sizes)
+   equal to their rows, the Prometheus render parsed back sample by sample
+   to the snapshot, ``export_json`` round-tripped, and the host us of a
+   guarded ``observe`` and ``gauge_set`` (on and off), the ms of
+   ``snapshot``, ``render_prometheus`` and ``export_json``; with
+   ``forensics_enable``, 8 i-verbs at 64 MB a rank whose Waits tick the
+   completion counter by 8 and a ``dump()`` holding every provider; the
+   sanitizer at level 2 naming exactly the i-verb left pending behind 50 ms
+   of queued sleep, with its backtrace, and none after its Wait; every
+   result bit-equal to the planes-off run; the i-verb's host us behind the
+   queued sleep with both planes off, forensics on and the sanitizer at
+   level 2; one ``{"diagnostics": ...}`` JSON line. ``qos``, ``ft/inject``,
+   ``linkmodel``, the detector and ``revoke`` have no path on the card
+   until the btl exists;
 6. one JSON line describing every kernel, then the device JSON line last.
 
 Without a CUDA device, or outside a checkout, it exits non-zero before
@@ -157,6 +178,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -2425,14 +2447,419 @@ def phase_typed(card, device="cuda", rows=TYPED_ROWS):
           f"{card}", flush=True)
 
 
+# phase 4k: the diagnostic and fault planes beside the card
+DIAG_IVERBS = ("allreduce", "bcast", "reduce", "allgather", "alltoall",
+               "reduce_scatter", "allreduce", "bcast")  # 8 i-verbs
+DIAG_REPS = 5  # i-verb calls timed behind queued work, a setting
+DIAG_HOOK_CALLS = 20000
+DIAG_EXPORT_REPS = 5
+PROM_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$')
+
+
+def bind_child(rank: int = 3, size: int = COMM_W) -> int:
+    """4k's child: ``bind_rank`` in a fresh process, its affinity read
+    back, as a JSON line."""
+    import os
+
+    from ompi_tpu_torch.runtime import topology
+
+    got = topology.bind_rank(rank, size)
+    print(json.dumps({"rank": rank, "size": size, "cpus": got,
+                      "affinity": sorted(os.sched_getaffinity(0))}),
+          flush=True)
+    return 0
+
+
+def _sysfs_nodes():
+    """{node id: cpus} read from /sys/devices/system/node on their own
+    terms (not through the module under test); {} where there is none."""
+    import os
+
+    root = "/sys/devices/system/node"
+    out = {}
+    if not os.path.isdir(root):
+        return out
+    for name in os.listdir(root):
+        if not (name.startswith("node") and name[4:].isdigit()):
+            continue
+        cpus = set()
+        with open(os.path.join(root, name, "cpulist")) as f:
+            for part in f.read().strip().split(","):
+                if part:
+                    lo, _, hi = part.partition("-")
+                    cpus.update(range(int(lo), int(hi or lo) + 1))
+        out[int(name[4:])] = sorted(cpus)
+    return out
+
+
+def diag_topology(card, device):
+    """4k.1: the host topology beside the card."""
+    import os
+
+    from ompi_tpu_torch.runtime import topology
+
+    topo = topology.discover()
+    allowed = sorted(os.sched_getaffinity(0))
+    require(topo.allowed_cpus == allowed,
+            f"discover()'s allowed cpus are the affinity mask ({topo.ncpus} "
+            f"vs {len(allowed)})")
+    nodes = _sysfs_nodes()
+    if nodes:
+        got = {n.id: sorted(n.cpus) for n in topo.numa}
+        require(got == nodes, f"discover()'s NUMA nodes are sysfs's: {got} "
+                              f"vs {nodes}")
+    require(all(topo.numa_of_cpu(c) >= 0 for c in allowed),
+            "every allowed cpu lies on a NUMA node")
+    acc = topo.accelerators()
+    if device == "cuda":
+        name = card.split(",")[0].strip()
+        require(len(acc) == torch.cuda.device_count()
+                and acc[0]["kind"] == name,
+                f"accelerators() names the card as nvidia-smi does: {acc}")
+    else:
+        require(acc == topology.accelerators(), "accelerators() on the host")
+    sets = [topology.rank_cpuset(r, COMM_W, topo) for r in range(COMM_W)]
+    require(all(sets), "rank_cpuset gives every rank of 8 a cpu")
+    require(sorted(set().union(*map(set, sets))) == allowed,
+            "the 8 ranks' cpusets cover the allowed set")
+    if topo.ncpus >= COMM_W:
+        require(sum(map(len, sets)) == len(set().union(*map(set, sets))),
+                "the 8 ranks' cpusets are disjoint")
+    p = subprocess.run([sys.executable, __file__, "--child", "bind_rank"],
+                       capture_output=True, text=True, timeout=120)
+    require(p.returncode == 0, f"the bind_rank child exits 0: {p.stderr}")
+    child = json.loads(p.stdout.strip().splitlines()[-1])
+    require(child["cpus"] == child["affinity"] == sets[child["rank"]],
+            f"bind_rank's affinity reads back in the child: {child}")
+    print("topology: " + topo.summary().replace("\n", " |"), flush=True)
+    return {"ncpus": topo.ncpus, "numa_nodes": len(topo.numa),
+            "rank_cpus": [len(s) for s in sets],
+            "accelerators": [a["kind"] for a in acc]}
+
+
+def parse_prometheus(text):
+    """{(name, labels text): value} of every sample of an exposition."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = PROM_SAMPLE.match(line)
+        require(m is not None, f"a Prometheus sample line: {line!r}")
+        key = (m.group(1), m.group(2) or "")
+        require(key not in out, f"one sample a series: {key}")
+        out[key] = float(m.group(3))
+    return out
+
+
+def prom_expected(metrics, snap):
+    """The samples ``render_prometheus([snap])`` must hold, from the
+    snapshot's own values."""
+    base = {"rank": snap["rank"]}
+    want = {}
+    for c, v in snap["counters"].items():
+        want[("ompi_spc_" + metrics._prom_name(c),
+              metrics._prom_labels(base))] = float(v)
+    for p, v in snap["pvars"].items():
+        if isinstance(v, (bool, int, float)):
+            want[("ompi_pvar_" + metrics._prom_name(p),
+                  metrics._prom_labels(base))] = float(v)
+    for g in snap["gauges"]:
+        want[("ompi_metrics_" + metrics._prom_name(g["name"]),
+              metrics._prom_labels(dict(base, **g["labels"])))] = g["value"]
+    for e in snap["ewmas"]:
+        want[("ompi_metrics_" + metrics._prom_name(e["name"]) + "_ewma",
+              metrics._prom_labels(dict(base, **e["labels"])))] = e["value"]
+    for h in snap["histograms"]:
+        name = "ompi_metrics_" + metrics._prom_name(h["name"])
+        lbl = dict(base, **h["labels"])
+        want[(name + "_count", metrics._prom_labels(lbl))] = h["count"]
+        want[(name + "_sum", metrics._prom_labels(lbl))] = h["sum"]
+        want[(name + "_bucket", metrics._prom_labels(dict(lbl, le="+Inf")))] \
+            = h["count"]
+    return want
+
+
+def _per_call_us(fn, n):
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def diag_metrics(card, dev, device, scale, quant_sizes, tmp):
+    """4k.2: the metrics plane over phase 4i's sequence on ``dev``."""
+    import os
+
+    from ompi_tpu_torch.coll import mesh as coll_mesh
+    from ompi_tpu_torch.mca.var import set_var
+    from ompi_tpu_torch.runtime import metrics, spc
+    from ompi_tpu_torch.tools import bench
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    set_var("metrics", "enable", True)
+    set_var("metrics", "dir", tmp)
+    metrics.reset_for_testing()
+    spc.reset()
+    inputs = obs_inputs(device, scale=scale)
+    outs, calls = obs_sequence(dev, *inputs)
+    sync()
+    del outs
+    snap = metrics.snapshot()
+    require(snap["counters"] == spc.snapshot() == calls,
+            f"snapshot()'s counters {snap['counters']} are spc's, the "
+            f"calls {calls}")
+    st = coll_mesh.stats
+    mesh_pvars = {k: snap["pvars"].get("coll_mesh_" + k)
+                  for k in ("cache_hits", "cache_misses", "compile_time_us")}
+    require(mesh_pvars == {"cache_hits": st.hits, "cache_misses": st.misses,
+                           "compile_time_us": st.compile_ns // 1000},
+            f"the snapshot's mesh cache pvars {mesh_pvars} are coll/mesh.py's"
+            f" stats")
+    # the bench legs at the bench's own sizes, their rows in the gauges
+    qrows = bench.bench_quant_sweep(dev, COMM_W, **(
+        {} if quant_sizes is None else {"sizes": quant_sizes}))
+    tax = bench.bench_dispatch_tax(dev)
+    require(all("skipped" not in r for r in qrows), f"quant sweep: {qrows}")
+    for r in qrows:
+        require(metrics.gauge_get("bench_quant_fraction", bytes=r["bytes"])
+                == r["fraction"]
+                and metrics.gauge_get("bench_quant_err_vs_bound",
+                                      bytes=r["bytes"])
+                == r["max_err_vs_bound"],
+                f"the quant gauges at {r['bytes']} B are the row's")
+    require(metrics.gauge_get("bench_prologue_us") == tax["prologue_us"]
+            and metrics.gauge_get("bench_dispatch_overhead_us")
+            == tax["overhead_us"]
+            and all(metrics.gauge_get("bench_layer_overhead_us", verb=v)
+                    == d["layer_overhead_us"]
+                    for v, d in tax["verb_sweep"].items()),
+            "the dispatch-tax gauges are the row's")
+    for v in (3.0, 700.0, 2.5e5):
+        metrics.observe("phase4k_hook_us", v, verb="allreduce")
+    metrics.ewma_update("phase4k_ewma", 12.5)
+    snap = metrics.snapshot()
+    text = metrics.render_prometheus([snap])
+    samples = parse_prometheus(text)
+    want = prom_expected(metrics, snap)
+    missing = {k: v for k, v in want.items() if samples.get(k) != v}
+    require(not missing, f"the Prometheus render parses back to the "
+                         f"snapshot: {list(missing.items())[:4]}")
+    path = metrics.export_json(os.path.join(tmp, "metrics-rank0.json"))
+    after = metrics.snapshot()
+    with open(path) as f:
+        doc = json.load(f)
+    for key in ("rank", "counters", "gauges", "histograms", "ewmas"):
+        require(doc[key] == json.loads(json.dumps(after[key], default=str)),
+                f"export_json round-trips {key}")
+    require(sorted(doc["pvars"]) == sorted(after["pvars"]),
+            "export_json round-trips the pvar names")
+
+    timings = {}
+    for on in (True, False):
+        set_var("metrics", "enable", on)
+        tag = "enabled" if on else "disabled"
+
+        def obs():
+            if metrics._enable_var._value:
+                metrics.observe("phase4k_hook_us", 5.0, verb="allreduce")
+
+        def gset():
+            if metrics._enable_var._value:
+                metrics.gauge_set("phase4k_gauge", 1.0, verb="allreduce")
+
+        timings[f"observe_us_{tag}"] = _per_call_us(obs, DIAG_HOOK_CALLS)
+        timings[f"gauge_set_us_{tag}"] = _per_call_us(gset, DIAG_HOOK_CALLS)
+    set_var("metrics", "enable", True)
+    for name, fn in (("snapshot_ms", metrics.snapshot),
+                     ("render_prometheus_ms", metrics.render_prometheus),
+                     ("export_json_ms", lambda: metrics.export_json(path))):
+        ts = []
+        for _ in range(DIAG_EXPORT_REPS):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        timings[name] = sorted(ts)[len(ts) // 2]
+    n = len(metrics.snapshot()["gauges"])
+    print(f"metrics: snapshot counters = spc {calls}; mesh cache pvars "
+          f"{mesh_pvars}; {len(qrows)} quant rows and {len(tax['verb_sweep'])}"
+          f" verbs in {n} gauges; {len(samples)} Prometheus samples parse "
+          f"back; export_json round-trips; {timings} on {card}", flush=True)
+    return dict(timings, prometheus_samples=len(samples), gauges=n)
+
+
+def _iverbs(dev, x, blocks):
+    """The 8 i-verbs of 4k.3 on ``x`` ([W, n]) and ``blocks`` ([W, W, n/W])."""
+    from ompi_tpu_torch.core.op import SUM
+
+    args = {"allreduce": (x,), "bcast": (x, COMM_ROOT),
+            "reduce": (x, SUM, COMM_ROOT), "allgather": (x,),
+            "alltoall": (blocks,), "reduce_scatter": (blocks,)}
+    return [getattr(dev, "i" + v)(*args[v]) for v in DIAG_IVERBS]
+
+
+def diag_requests(card, dev, device, scale, tmp):
+    """4k.3: forensics and the sanitizer on the card's requests."""
+    import os
+
+    from ompi_tpu_torch.core import request as core_request
+    from ompi_tpu_torch.mca.var import all_pvars, set_var
+    from ompi_tpu_torch.runtime import forensics, sanitizer
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gen = torch.Generator(device).manual_seed(12)
+    x = torch.randn((COMM_W, ASYNC_ELEMS // scale), device=device,
+                    generator=gen)
+    blocks = x.view(COMM_W, COMM_W, -1)
+    # both planes off: the reference results
+    plain = [r.result for r in _iverbs(dev, x, blocks)]
+    sync()
+
+    set_var("metrics", "dir", tmp)
+    set_var("forensics", "enable", True)
+    require(core_request._fx_note is forensics.note_completion,
+            "forensics_enable binds the completion tick")
+    base = forensics._completions[0]
+    reqs = _iverbs(dev, x, blocks)
+    for r in reqs:
+        r.Wait()
+    ticks = forensics._completions[0] - base
+    require(ticks == len(DIAG_IVERBS),
+            f"8 Waits tick the completion counter by 8 ({ticks})")
+    require(all(torch.equal(r.result, p) for r, p in zip(reqs, plain)),
+            "the i-verbs under forensics are bit-equal to the plain ones")
+    del reqs
+    dumps0 = all_pvars()["forensics_dumps"].value
+    expected = {n for n, fn in forensics._providers.items() if fn() is not None}
+    path = forensics.dump(reason="chip_smoke phase 4k")
+    require(path == os.path.join(tmp, "stall-rank0.json"),
+            f"dump() writes under metrics_dir ({path})")
+    with open(path) as f:
+        doc = json.load(f)
+    require("runtime.progress" in doc["subsystems"]
+            and set(doc["subsystems"]) == expected,
+            f"the dump holds every provider: {sorted(doc['subsystems'])} vs "
+            f"{sorted(expected)}")
+    require(all_pvars()["forensics_dumps"].value == dumps0 + 1,
+            "the forensics_dumps pvar counts the dump")
+    set_var("forensics", "enable", False)
+    require(core_request._fx_note is None, "forensics off unbinds the tick")
+
+    sanitizer.enable(level=2)
+    try:
+        waited = dev.iallreduce(x)
+        waited.Wait()
+        leaks = []
+        if cuda:
+            cycles = _sleep_cycles(ASYNC_SLEEP_MS)
+            sync()
+            torch.cuda._sleep(cycles)
+            pending = dev.iallreduce(x)
+            leaks = sanitizer.check_leaks()
+            require([r for r, _ in leaks] == [pending],
+                    f"check_leaks() names exactly the pending i-verb "
+                    f"({len(leaks)} named)")
+            require("chip_smoke" in (leaks[0][1] or ""),
+                    "with its creation backtrace")
+            pending.Wait()
+            require(torch.equal(pending.result, plain[0]),
+                    "the pending i-verb under the sanitizer is bit-equal")
+        require(sanitizer.check_leaks() == [], "after its Wait: no leak")
+        require(torch.equal(waited.result, plain[0]),
+                "the i-verb under the sanitizer is bit-equal")
+        del waited
+    finally:
+        sanitizer.disable()
+
+    # the i-verb's host time behind queued device work, in three settings
+    host_us = {}
+    if cuda:
+        cycles = _sleep_cycles(ASYNC_SLEEP_MS)
+        for setting in ("off", "forensics", "sanitizer_level2"):
+            if setting == "forensics":
+                set_var("forensics", "enable", True)
+            elif setting == "sanitizer_level2":
+                sanitizer.enable(level=2)
+            try:
+                ts = []
+                for _ in range(DIAG_REPS):
+                    sync()
+                    torch.cuda._sleep(cycles)
+                    t0 = time.perf_counter()
+                    req = dev.iallreduce(x)
+                    ts.append(1e6 * (time.perf_counter() - t0))
+                    require(not req.Test(), "the i-verb waits behind the "
+                                            "queued sleep")
+                    req.Wait()
+                host_us[setting] = sorted(ts)[len(ts) // 2]
+            finally:
+                set_var("forensics", "enable", False)
+                sanitizer.disable()
+    print(f"requests: {ticks} completion ticks for {len(DIAG_IVERBS)} "
+          f"i-verbs at {ASYNC_ELEMS // scale * 4} B a rank, bit-equal to the "
+          f"plain ones; dump {os.path.basename(path)} with "
+          f"{len(doc['subsystems'])} providers; the sanitizer named "
+          f"{len(leaks)} pending i-verb(s), then none; i-verb host us behind "
+          f"{ASYNC_SLEEP_MS:.0f} ms of queued work {host_us} on {card}",
+          flush=True)
+    return {"completion_ticks": ticks, "dump_providers": len(doc["subsystems"]),
+            "pending_named": len(leaks),
+            "iverb_host_us_behind_queued_work": host_us}
+
+
+def phase_diagnostics(card, device="cuda", scale=1, quant_sizes=None):
+    """Phase 4k: the diagnostic and fault planes that process mode stands
+    on, beside the card: the host topology (NUMA, rank cpusets, binding in
+    a child, the card in the accelerator inventory); the metrics plane over
+    phase 4i's sequence on ``mesh_world(8)`` and the bench's gauges, its
+    Prometheus render and JSON export; forensics' completion tick and dump
+    and the sanitizer's leak check on the card's i-verb requests, with the
+    i-verb's host time behind queued work in each setting. ``qos``,
+    ``ft/inject``, ``linkmodel``, the detector and ``revoke`` have no path
+    on the card until the btl exists: their wire hooks are the tcp btl's.
+    ``device="cpu"`` with a ``scale`` rehearses the phase on the host,
+    where every request completes when its verb returns, so the pending
+    request and the timings behind queued work are left out."""
+    import shutil
+    import tempfile
+
+    import ompi_tpu_torch.ft.detector  # noqa: F401 a forensics provider
+    from ompi_tpu_torch.mca.var import get_var, set_var
+    from ompi_tpu_torch.parallel.mesh import mesh_world
+    from ompi_tpu_torch.runtime import metrics
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_diag_")
+    saved = {n: get_var(*n) for n in (("metrics", "enable"),
+                                      ("metrics", "dir"))}
+    try:
+        out = {"topology": diag_topology(card, device)}
+        dev = mesh_world(COMM_W, device)
+        out["metrics"] = diag_metrics(card, dev, device, scale, quant_sizes,
+                                      tmp)
+        out["requests"] = diag_requests(card, dev, device, scale, tmp)
+    finally:
+        for n, v in saved.items():
+            set_var(*n, v)
+        metrics.reset_for_testing()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card
+    print(json.dumps({"diagnostics": out}), flush=True)
+    print(f"phase 4k: {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the flagship forward's and training "
                          "step's kernels")
-    ap.add_argument("--child", choices=sorted(OBS_CHILDREN),
-                    help=argparse.SUPPRESS)  # phase 4i's child processes
+    ap.add_argument("--child", choices=sorted(OBS_CHILDREN) + ["bind_rank"],
+                    help=argparse.SUPPRESS)  # phase 4i's and 4k's children
     args = ap.parse_args()
+    if args.child == "bind_rank":  # 4k's child reads the host, not the card
+        return bind_child()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2483,6 +2910,7 @@ def main() -> int:
     bench_counts = phase_bench(fa, card)
     phase_observe(card)
     phase_typed(card)
+    phase_diagnostics(card)
 
     # 5. where the time goes
     if args.profile:

@@ -4,12 +4,14 @@ The port of the part of ``ompi_tpu/comm/communicator.py:116-290`` that the
 mesh-mode communicator (``parallel/mesh.py``) stands on: a comm owns a
 group, a context id (CID), a name, an errhandler, cached attributes with
 keyval copy/delete callbacks, the ULFM revoked flag, a collectives table
-(``coll``) and a topology (``topo``).
+(``coll``) and a topology (``topo``); its QoS class and ``Dump_state``
+(``:161-190``); and the live-comm registry (``lookup_comm``, ``:895-906``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import weakref
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -76,6 +78,38 @@ class Communicator:
 
     def Set_errhandler(self, eh: Errhandler) -> None:
         self.errhandler = eh
+
+    # ---------------------------------------------------------------- QoS
+    def Set_qos_class(self, cls) -> None:
+        """Pin this communicator's traffic to QoS class ``cls``
+        ('latency' / 'normal' / 'bulk'): a latency-critical serving
+        comm is promoted past background planes, a replication comm is
+        demoted below foreground collectives."""
+        from ompi_tpu_torch import qos as _qos
+
+        _qos.set_comm_class(self, cls)
+
+    def Get_qos_class(self) -> str:
+        from ompi_tpu_torch import qos as _qos
+
+        return _qos.NAMES[_qos.get_comm_class(self)]
+
+    # ------------------------------------------------- stall forensics
+    def Dump_state(self, reason: str = "Dump_state") -> Optional[str]:
+        """Debug verb: write this rank's full per-subsystem forensics
+        dump (``stall-rank<N>.json`` under metrics_dir) and — in
+        process mode — request the same from every member of this
+        communicator over the forensics system plane. Works with the
+        stall sentinel disabled (``forensics_enable`` gates only the
+        automatic machinery); returns the local dump path, or None if
+        the dump could not be written."""
+        from ompi_tpu_torch.runtime import forensics as _fx
+
+        path = _fx.dump(reason=reason)
+        pml = getattr(self, "pml", None)
+        if pml is not None and self.size > 1:
+            _fx.request_peer_dumps(pml, list(self.group.ranks), reason)
+        return path
 
     # ---------------------------------------------------------- attributes
     def Set_attr(self, keyval: int, value: Any) -> None:
@@ -167,3 +201,17 @@ class Intracomm(Communicator):
             return flag
         x = self.shard(np.full((self.world_size, 1), flag, np.int32))
         return int(self.allreduce(x, _op.BAND)[0, 0])
+
+
+# Live communicator registry: cid -> comm, used by the ULFM revoke handler,
+# the QoS class lookup and the metrics plane (reference: the framework-wide
+# comm table ompi_comm_lookup uses). In the reference only a process-mode
+# ProcComm registers itself; mesh-mode comms never do, so until process
+# mode is ported the registry stays empty.
+_live_comms: "weakref.WeakValueDictionary[int, Communicator]" = (
+    weakref.WeakValueDictionary()
+)
+
+
+def lookup_comm(cid: int) -> Optional[Communicator]:
+    return _live_comms.get(cid)

@@ -2,7 +2,8 @@
 
 The port's copy of the part of ``ompi_tpu/core/errors.py`` that the
 mesh-mode communicator, its requests, the mesh window, the multi-slice
-comm, the checkpointer, MPI_T and the datatype engine raise or carry. Error classes are
+comm, the checkpointer, MPI_T, the datatype engine and the semantics
+sanitizer raise or carry. Error classes are
 the stable integers of ``mpi.h``; the verbs raise ``MPIError`` with the
 class.
 """
@@ -29,6 +30,8 @@ ERR_WIN = 45
 ERR_UNSUPPORTED_OPERATION = 63
 # ULFM (MPIX_ERR_REVOKED): an operation on a revoked communicator
 ERR_REVOKED = 77
+# the runtime semantics sanitizer (runtime/sanitizer.py) at level >= 2
+ERR_SANITIZER = 78
 
 _ERROR_STRINGS = {
     SUCCESS: "MPI_SUCCESS: no error",
@@ -48,6 +51,8 @@ _ERROR_STRINGS = {
     ERR_WIN: "MPI_ERR_WIN: invalid window",
     ERR_UNSUPPORTED_OPERATION: "MPI_ERR_UNSUPPORTED_OPERATION",
     ERR_REVOKED: "MPIX_ERR_REVOKED: communicator revoked",
+    ERR_SANITIZER: "MPIX_ERR_SANITIZER: MPI semantics violation "
+                   "detected by the runtime sanitizer",
 }
 
 

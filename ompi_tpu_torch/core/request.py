@@ -295,18 +295,17 @@ class Prequest(Request):
 _progress_fn: Optional[Callable[[], int]] = None
 _completion_cond = threading.Condition()
 
-# Sanitizer hooks, bound lazily by runtime/sanitizer.py install() once it
-# is ported (same pattern as _bind_progress — core must not import the
-# runtime). All three default to None so the disabled path costs one global load and
+# Sanitizer hooks, bound lazily by runtime/sanitizer.py install() (same
+# pattern as _bind_progress — core must not import the runtime). All three default to None so the disabled path costs one global load and
 # a branch; _san_new fires per Request construction, _san_done per
 # completion, _san_wait wraps blocked Waits for the deadlock detector.
 _san_new: Optional[Callable[["Request"], None]] = None
 _san_done: Optional[Callable[["Request"], None]] = None
 _san_wait = None  # Request -> watch object with poll()/close(), or None
 
-# Stall-sentinel completion tick, bound by runtime/forensics.py (once it
-# is ported) only while forensics_enable is set (rebound live on cvar writes) — the
-# disabled path is this one global load per completion.
+# Stall-sentinel completion tick, bound by runtime/forensics.py only while
+# forensics_enable is set (rebound live on cvar writes) — the disabled path
+# is this one global load per completion.
 _fx_note: Optional[Callable[["Request"], None]] = None
 
 

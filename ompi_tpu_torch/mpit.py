@@ -379,10 +379,12 @@ def emit(_fw: str, _name: str, **data: Any) -> None:
 
 
 # the event types of the port's instrumentation sites (mca/component.py,
-# comm/communicator.py, runtime/trace.py)
+# comm/communicator.py, ft/detector.py, ft/revoke.py, runtime/trace.py)
 register_event_type("mca", "component_selected",
                     "A framework selected its component")
 register_event_type("comm", "created", "A communicator was constructed")
 register_event_type("comm", "revoked", "A communicator was revoked")
+register_event_type("ft", "proc_failed",
+                    "The detector declared a process failed")
 register_event_type("trace", "span_begin", "A trace span opened")
 register_event_type("trace", "span_end", "A trace span closed")

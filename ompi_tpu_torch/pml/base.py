@@ -1,8 +1,9 @@
 """PML base: wire headers, matching engine, send/recv requests.
 
-The port of ``ompi_tpu/pml/base.py`` but ``world_pml``, which reads
-``runtime/state.py`` and comes with the first runnable process mode.
-The wire format is byte-compatible with the reference's.
+The port of ``ompi_tpu/pml/base.py``. ``world_pml`` reads the world slot
+of ``runtime/state.py``, which comes with the first runnable process mode;
+until then there is no world and it returns None, as the reference does
+before Init. The wire format is byte-compatible with the reference's.
 
 Reference contracts:
 - protocol set: ompi/mca/pml/ob1/pml_ob1_hdr.h:43-52 (MATCH, RNDV, RGET,
@@ -20,6 +21,7 @@ reference's opal_using_threads() coarse mode).
 from __future__ import annotations
 
 import struct
+import sys
 import threading
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -71,6 +73,22 @@ def send_system(pml, dst: int, obj: dict, tag: int) -> None:
     from ompi_tpu_torch.runtime import progress as _progress
 
     _progress.poke()
+
+
+def world_comm():
+    """The world communicator of process mode, or None before Init and
+    after teardown. Read through ``sys.modules``: ``runtime/state.py``
+    imports this module, never the reverse, and while it is not imported
+    there is no world."""
+    state = sys.modules.get("ompi_tpu_torch.runtime.state")
+    return None if state is None else state._world
+
+
+def world_pml():
+    """The world communicator's pml, or None before Init/after teardown
+    (shared by the diagnostic planes' handler binding)."""
+    w = world_comm()
+    return None if w is None else w.pml
 
 
 class SystemPlane:

@@ -346,8 +346,7 @@ class ProgressThread:
 def _fx_debug_state() -> dict:
     """Forensics provider (runtime/forensics contract): park state and
     wake sources — is anyone still driving progress, and can a frame
-    wake it. It is registered with forensics once that module is ported
-    (the reference registers it at import)."""
+    wake it. Registered with forensics as ``runtime.progress`` below."""
     with _wake_lock:
         parked = _parked[0]
         blocks = _idle_blocks[0]
@@ -365,3 +364,8 @@ def _fx_debug_state() -> dict:
         "idle_block_us": int(_idle_var._value),
         "wakeup_pipe_armed": _wakeup[0] is not None,
     }
+
+
+from ompi_tpu_torch.runtime import forensics as _forensics  # noqa: E402
+
+_forensics.register_provider("runtime.progress", _fx_debug_state)

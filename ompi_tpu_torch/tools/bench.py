@@ -24,9 +24,13 @@ headline line to stdout. What differs, and why:
 - The legs that drive process mode (``bench_plan_cache``, ``bench_p2p`` to
   ``bench_host_paths``) are not here: the port has no process mode. The
   dispatch tax goes into the spc counters ``dispatch_<verb>_layer_overhead_ns``
-  as ``bench.py:306-317`` writes it; the metrics gauges ``bench.py``
-  mirrors its results into wait for the metrics registry, which is process
-  mode.
+  as ``bench.py:306-317`` writes it, and the quant sweep and the dispatch
+  tax mirror their results into the metrics gauges ``bench_quant_fraction``
+  and ``bench_quant_err_vs_bound`` (labelled by ``bytes``),
+  ``bench_prologue_us``, ``bench_dispatch_overhead_us`` and
+  ``bench_layer_overhead_us`` (labelled by ``verb``), as
+  ``bench.py:225-228, 355-360`` do, so that the snapshot and Prometheus
+  exports report the numbers of the rows.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -55,7 +59,7 @@ from ompi_tpu_torch.ops import flash_attention as fa
 from ompi_tpu_torch.ops.softmax_xent import softmax_xent_sum
 from ompi_tpu_torch.parallel.mesh import mesh_world
 from ompi_tpu_torch.quant.codec import make_codec
-from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.runtime import metrics, spc
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -292,9 +296,14 @@ def bench_quant_sweep(world, n: int, sizes=QUANT_BYTES):
             iters = 60 if nbytes <= (1 << 20) else 12
             t_fp32, t_q = paired_ms(world.allreduce, qworld.allreduce, x,
                                     iters, b_arg=xq)
-            out.append({"bytes": per_rank * 4, "fp32_s": t_fp32 / 1e3,
-                        "quant_s": t_q / 1e3, "fraction": t_fp32 / t_q,
-                        "max_err_vs_bound": rel})
+            row = {"bytes": per_rank * 4, "fp32_s": t_fp32 / 1e3,
+                   "quant_s": t_q / 1e3, "fraction": t_fp32 / t_q,
+                   "max_err_vs_bound": rel}
+            out.append(row)
+            metrics.gauge_set("bench_quant_fraction", row["fraction"],
+                              bytes=row["bytes"])
+            metrics.gauge_set("bench_quant_err_vs_bound", rel,
+                              bytes=row["bytes"])
             del x, xq
         return out
     finally:
@@ -367,8 +376,15 @@ def bench_dispatch_tax(world):
     finally:
         world._cache.clear()
         world._cache.update(saved)
-    return {"ours_us": d_ours, "raw_us": d_raw, "overhead_us": d_ours - d_raw,
-            "prologue_us": (t_verb - t_stub) * 1e6, "verb_sweep": sweep}
+    out = {"ours_us": d_ours, "raw_us": d_raw, "overhead_us": d_ours - d_raw,
+           "prologue_us": (t_verb - t_stub) * 1e6, "verb_sweep": sweep}
+    # gauges, not counters: a re-run replaces the reading
+    metrics.gauge_set("bench_prologue_us", out["prologue_us"])
+    metrics.gauge_set("bench_dispatch_overhead_us", out["overhead_us"])
+    for vname, d in sweep.items():
+        metrics.gauge_set("bench_layer_overhead_us",
+                          d["layer_overhead_us"], verb=vname)
+    return out
 
 
 # -------------------------------------------------------- the model step

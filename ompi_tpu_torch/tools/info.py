@@ -28,6 +28,14 @@ def _load_everything() -> None:
     import ompi_tpu_torch.quant  # noqa: F401 quant_* and their pvars
     import ompi_tpu_torch.runtime.spc  # noqa: F401 spc_enable
     import ompi_tpu_torch.runtime.trace  # noqa: F401 trace_* and pvars
+    import ompi_tpu_torch.runtime.topology  # noqa: F401 topo_bind_ranks
+    import ompi_tpu_torch.qos  # noqa: F401 qos_tag_map, btl_tcp_shape_*
+    import ompi_tpu_torch.ft.inject  # noqa: F401 ft_inject_*, injected faults
+    import ompi_tpu_torch.ft.detector  # noqa: F401 ft_enable, heartbeat vars
+    import ompi_tpu_torch.runtime.metrics  # noqa: F401 metrics_* and pvars
+    import ompi_tpu_torch.runtime.linkmodel  # noqa: F401 linkmodel_*
+    import ompi_tpu_torch.runtime.forensics  # noqa: F401 forensics_*
+    import ompi_tpu_torch.runtime.sanitizer  # noqa: F401 sanitizer_*
 
 
 def print_header(out) -> None:

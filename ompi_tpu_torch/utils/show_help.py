@@ -37,3 +37,10 @@ def show_help(topic: str, key: str, once: bool = True, **fmt) -> str:
     banner = "-" * 62
     print(f"{banner}\n{rendered}\n{banner}", file=sys.stderr)
     return rendered
+
+
+register_topic(
+    "comm", "revoked",
+    "Communicator {name} has been revoked (ULFM). Collective and\n"
+    "point-to-point operations on it will fail with ERR_REVOKED.",
+)

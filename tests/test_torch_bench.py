@@ -397,3 +397,35 @@ def test_dispatch_tax_is_mirrored_into_spc(world, cheap_timers):
     out = io.StringIO()
     info.print_pvars(out)
     assert "spc_dispatch_scan_layer_overhead_ns" in out.getvalue()
+
+
+def test_bench_rows_are_mirrored_into_the_metrics_gauges(world, cheap_timers):
+    """The quant sweep and the dispatch tax write the reference's gauges
+    (``bench.py:225-228, 355-360``): each gauge is its row's value, and the
+    Prometheus render carries it."""
+    from ompi_tpu_torch.runtime import metrics
+    from tools.promexport import validate
+
+    metrics.reset_for_testing()
+    try:
+        rows = bench.bench_quant_sweep(world, W, sizes=(1 << 16, 1 << 12))
+        tax = bench.bench_dispatch_tax(world)
+        for row in rows:
+            assert metrics.gauge_get("bench_quant_fraction",
+                                     bytes=row["bytes"]) == row["fraction"]
+            assert metrics.gauge_get("bench_quant_err_vs_bound",
+                                     bytes=row["bytes"]) == \
+                row["max_err_vs_bound"]
+        assert metrics.gauge_get("bench_prologue_us") == tax["prologue_us"]
+        assert metrics.gauge_get("bench_dispatch_overhead_us") == \
+            tax["overhead_us"]
+        for verb, d in tax["verb_sweep"].items():
+            assert metrics.gauge_get("bench_layer_overhead_us",
+                                     verb=verb) == d["layer_overhead_us"]
+        text = metrics.render_prometheus()
+        assert validate(text) == []
+        assert 'ompi_metrics_bench_quant_fraction{bytes="65536",rank="0"}' \
+            in text
+        assert len(metrics.snapshot()["gauges"]) == 2 * 2 + 2 + 6
+    finally:
+        metrics.reset_for_testing()

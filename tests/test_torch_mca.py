@@ -51,6 +51,18 @@ SHARED = {
     "accelerator_accelerator": "accelerator_accelerator",
     "accelerator_cuda_mem_bw": "accelerator_tpu_mem_bw",
 }
+# the diagnostic and fault planes' variables keep the reference's names
+SHARED.update((n, n) for n in [
+    "topo_bind_ranks", "qos_tag_map", "btl_tcp_shape_enable",
+    "btl_tcp_shape_segment_bytes", "ft_inject_plan", "ft_inject_seed",
+    "ft_enable", "ft_heartbeat_period", "ft_heartbeat_timeout",
+    "metrics_enable", "metrics_straggler_threshold_us",
+    "metrics_straggler_min_samples", "metrics_ewma_alpha",
+    "metrics_hist_buckets", "metrics_dir", "metrics_http_port",
+    "metrics_snapshot_period", "linkmodel_enable", "linkmodel_probe_ms",
+    "linkmodel_rtt_degraded_us", "linkmodel_loss_degraded_ppm",
+    "forensics_enable", "forensics_stall_threshold_ms", "sanitizer_enable",
+    "sanitizer_level", "sanitizer_deadlock_timeout"])
 
 
 def _load_jax():
@@ -60,6 +72,15 @@ def _load_jax():
     import ompi_tpu.quant  # noqa: F401
     import ompi_tpu.runtime.spc  # noqa: F401
     import ompi_tpu.runtime.trace  # noqa: F401
+    import ompi_tpu.runtime.topology  # noqa: F401
+    import ompi_tpu.qos  # noqa: F401
+    import ompi_tpu.ft.inject  # noqa: F401
+    import ompi_tpu.ft.detector  # noqa: F401
+    import ompi_tpu.runtime.metrics  # noqa: F401
+    import ompi_tpu.runtime.linkmodel  # noqa: F401
+    import ompi_tpu.runtime.forensics  # noqa: F401
+    import ompi_tpu.runtime.sanitizer  # noqa: F401
+    import ompi_tpu.runtime.smsc  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -7,12 +7,17 @@ import pytest
 
 
 class VarSetter:
-    def __init__(self):
+    """``watched`` puts a value back through ``set_var``, so that the
+    variable's watchers run (a plane that binds hooks or caches on a
+    write, such as forensics or the QoS tag map, then unbinds)."""
+
+    def __init__(self, watched: bool = False):
         self._saved = []
+        self._watched = watched
 
     def _set(self, mod, fw, name, value):
         v = mod.all_vars()[f"{fw}_{name}"]
-        self._saved.append((v, v._value, v._source))
+        self._saved.append((v, v._value, v._source, mod, fw, name))
         mod.set_var(fw, name, value)
 
     def port(self, fw, name, value):
@@ -30,7 +35,9 @@ class VarSetter:
         self.port(fw, name, value)
 
     def restore(self):
-        for v, value, source in reversed(self._saved):
+        for v, value, source, mod, fw, name in reversed(self._saved):
+            if self._watched:
+                mod.set_var(fw, name, value)
             v._value, v._source = value, source
         self._saved.clear()
 
@@ -38,6 +45,15 @@ class VarSetter:
 @pytest.fixture
 def mca():
     setter = VarSetter()
+    try:
+        yield setter
+    finally:
+        setter.restore()
+
+
+@pytest.fixture
+def mca_watched():
+    setter = VarSetter(watched=True)
     try:
         yield setter
     finally:

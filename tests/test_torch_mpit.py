@@ -136,6 +136,14 @@ def test_categories_group_by_framework(t):
 
 
 def test_event_types_are_the_references(t):
+    # the modules that register event types, in both packages
+    import ompi_tpu.runtime.forensics  # noqa: F401
+    import ompi_tpu.runtime.metrics  # noqa: F401
+    import ompi_tpu.runtime.sanitizer  # noqa: F401
+    import ompi_tpu_torch.runtime.forensics  # noqa: F401
+    import ompi_tpu_torch.runtime.metrics  # noqa: F401
+    import ompi_tpu_torch.runtime.sanitizer  # noqa: F401
+
     jmpit.init_thread()
     try:
         jnames = {jmpit.event_get_info(i).full_name
@@ -144,7 +152,10 @@ def test_event_types_are_the_references(t):
         jmpit.finalize()
     names = {t.event_get_info(i).full_name for i in range(t.event_get_num())}
     assert names == {"mca_component_selected", "comm_created",
-                     "comm_revoked", "trace_span_begin", "trace_span_end"}
+                     "comm_revoked", "ft_proc_failed", "trace_span_begin",
+                     "trace_span_end", "metrics_straggler_trip",
+                     "forensics_stall", "forensics_dump",
+                     "sanitizer_violation"}
     assert names <= jnames
 
 

@@ -13,6 +13,7 @@ package's, on the CPU.
 """
 
 import importlib
+import sys
 import time
 import types
 
@@ -152,7 +153,10 @@ def test_constants_agree():
                  "RNDV_RTS", "RNDV_CTS", "RNDV_DATA", "RNDV_FIN", "RNDV_ACK",
                  "HDR_SIZE", "QOS_SHIFT", "KIND_MASK"):
         assert getattr(tb, name) == getattr(jb, name), name
-    assert not hasattr(tb, "world_pml")  # comes with runtime/state.py
+    # world_pml reads runtime/state.py's world, which comes with process
+    # mode: until then there is none, as in the reference before Init
+    assert "ompi_tpu_torch.runtime.state" not in sys.modules
+    assert tb.world_pml() is None and tb.world_comm() is None
 
 
 @pytest.mark.parametrize("tag,cid", [(0, 0), (5, 3), (-1, 0), (-3999, 0),

@@ -75,7 +75,11 @@ def test_the_scan_sees_a_forbidden_import():
     "ompi_tpu_torch.pml.base", "ompi_tpu_torch.runtime.mpool",
     "ompi_tpu_torch.runtime.smsc", "ompi_tpu_torch.runtime.modex",
     "ompi_tpu_torch.runtime.plm", "ompi_tpu_torch.runtime.ifaces",
-    "ompi_tpu_torch.tools.fake_rsh"])
+    "ompi_tpu_torch.tools.fake_rsh", "ompi_tpu_torch.qos",
+    "ompi_tpu_torch.ft", "ompi_tpu_torch.ft.inject",
+    "ompi_tpu_torch.ft.detector", "ompi_tpu_torch.ft.revoke",
+    "ompi_tpu_torch.runtime.metrics", "ompi_tpu_torch.runtime.linkmodel",
+    "ompi_tpu_torch.runtime.forensics", "ompi_tpu_torch.runtime.sanitizer"])
 def test_modules_import_without_building(mod):
     importlib.import_module(mod)
     from ompi_tpu_torch.ops import _build
