@@ -166,8 +166,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    result bit-equal to the planes-off run; the i-verb's host us behind the
    queued sleep with both planes off, forensics on and the sanitizer at
    level 2; one ``{"diagnostics": ...}`` JSON line. ``qos``, ``ft/inject``,
-   ``linkmodel``, the detector and ``revoke`` have no path on the card
-   until the btl exists;
+   ``linkmodel``, the detector and ``revoke`` ride the tcp btl's wire
+   (4l arms ``ft/inject`` there);
+4l. the byte transfer layer (``phase_btl``): the native library (the sm
+   ring and the runs engine) built with ``g++`` at first use (its path and
+   build seconds printed); f32 and bf16 payloads of 64 MB, int8 of 16 MB
+   and 64 MB of f32 zeros made on the card from a seed and staged to the
+   host through the accelerator component (bf16 through its int16 view);
+   each sent through ``SelfBtl``, a ``TcpBtl`` pair (reliable,
+   ``btl_tcp_reliable=0``, ``btl_tcp_compress=1``) and an ``SmBtl`` pair
+   (native ring, ``btl_sm_use_native=0``), as one frame (on sm the
+   overflow file) and in ob1's fragments (1 MB on tcp, 64 KB on sm, at
+   most 16 MB ahead of what arrived), twice; what arrives is uploaded to
+   the card and held against the original there with ``torch.equal`` on
+   its bytes; then the reliable pair under ``ft_inject_plan``
+   ``corrupt(0,1,nth=7)``: the 64 MB f32 stream heals bit-exact, with CRC
+   rejects and retransmits counted and no peer marked failed; one
+   ``{"btl": ...}`` JSON line with GB/s per path, framing, payload and
+   call, the tcp pvars per wire byte, the compressed wire ratio, D2H and
+   H2D GB/s and the phase's seconds with the card;
 6. one JSON line describing every kernel, then the device JSON line last.
 
 Without a CUDA device, or outside a checkout, it exits non-zero before
@@ -2815,8 +2832,8 @@ def phase_diagnostics(card, device="cuda", scale=1, quant_sizes=None):
     Prometheus render and JSON export; forensics' completion tick and dump
     and the sanitizer's leak check on the card's i-verb requests, with the
     i-verb's host time behind queued work in each setting. ``qos``,
-    ``ft/inject``, ``linkmodel``, the detector and ``revoke`` have no path
-    on the card until the btl exists: their wire hooks are the tcp btl's.
+    ``ft/inject``, ``linkmodel``, the detector and ``revoke`` ride the tcp
+    btl's wire, which phase 4l drives.
     ``device="cpu"`` with a ``scale`` rehearses the phase on the host,
     where every request completes when its verb returns, so the pending
     request and the timings behind queued work are left out."""
@@ -2847,6 +2864,315 @@ def phase_diagnostics(card, device="cuda", scale=1, quant_sizes=None):
     out["card"] = card
     print(json.dumps({"diagnostics": out}), flush=True)
     print(f"phase 4k: {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
+# phase 4l: the byte transfer layer beside the card
+BTL_PAYLOADS = (("f32", torch.float32, 64 << 20),
+                ("bf16", torch.bfloat16, 64 << 20),
+                ("int8", torch.int8, 16 << 20),
+                ("zeros_f32", torch.float32, 64 << 20))
+BTL_TCP_FRAG = 1 << 20        # ob1's default rendezvous fragment
+BTL_PIPELINE_DEPTH = 16 << 20  # ob1's default unacked bytes in flight
+BTL_CALLS = 2                 # a first and a second call of every path
+BTL_CORRUPT = "corrupt(0,1,nth=7)"
+BTL_DEADLINE_S = 120.0        # a transfer not done by then fails the phase
+BTL_TCP_MODES = {"tcp": {}, "tcp_legacy": {"reliable": 0},
+                 "tcp_compressed": {"compress": 1}}
+BTL_SM_MODES = {"sm": {"use_native": 1}, "sm_python": {"use_native": 0}}
+
+
+def btl_payloads(device, scale, gen):
+    """Phase 4l's payloads on ``device`` from ``gen``: name -> tensor (f32
+    and bf16 of 64 MB, int8 of 16 MB and 64 MB of f32 zeros, each divided
+    by ``scale``)."""
+    out = {}
+    for name, dtype, nbytes in BTL_PAYLOADS:
+        n = nbytes // scale // torch.tensor([], dtype=dtype).element_size()
+        if name.startswith("zeros"):
+            out[name] = torch.zeros(n, dtype=dtype, device=device)
+        elif dtype.is_floating_point:
+            out[name] = torch.randn(n, generator=gen, device=device,
+                                    dtype=dtype)
+        else:
+            out[name] = torch.randint(-128, 128, (n,), generator=gen,
+                                      device=device, dtype=dtype)
+    return out
+
+
+class _BtlSink:
+    """A receiving end: each frame's payload lands at its header's byte
+    offset in one buffer (a retransmitted frame may overtake another)."""
+
+    def __init__(self, header_cls):
+        self.header_cls = header_cls
+        self.buf = np.empty(0, np.uint8)
+        self.bytes = self.frames = 0
+
+    def reset(self, nbytes):
+        if self.buf.nbytes != nbytes:
+            self.buf = np.empty(nbytes, np.uint8)
+        self.buf.fill(0)
+        self.bytes = self.frames = 0
+
+    def deliver(self, hdr, payload):
+        off = self.header_cls(bytes(hdr)).offset
+        data = np.frombuffer(payload, np.uint8)
+        self.buf[off:off + data.nbytes] = data
+        self.bytes += data.nbytes
+        self.frames += 1
+
+
+def _btl_drive(send, peer, btls, sink, host, frag, pml, depth):
+    """Send ``host`` (read-only uint8) to ``peer`` in frames of ``frag``
+    bytes, at most ``depth`` bytes ahead of what has arrived (ob1's flow
+    control), and progress ``btls`` until ``sink`` holds all of it; the
+    host seconds. Past ``BTL_DEADLINE_S`` the phase fails."""
+    n = host.nbytes
+    sink.reset(n)
+    t0 = time.perf_counter()
+    offs = list(range(0, n, frag))
+    i = 0
+    while sink.bytes < n:
+        while i < len(offs) and offs[i] - sink.bytes < depth:
+            off = offs[i]
+            send(peer, pml.pack_header(pml.EAGER, 0, 0, 4400, i + 1, n, off,
+                                       0), host[off:off + frag])
+            i += 1
+        for b in btls:
+            b.progress()
+        require(time.perf_counter() - t0 < BTL_DEADLINE_S,
+                f"btl: {n} bytes delivered within {BTL_DEADLINE_S:.0f} s "
+                f"({sink.bytes} arrived)")
+    secs = time.perf_counter() - t0
+    require(sink.bytes == n, f"btl: exactly {n} bytes delivered")
+    # a live progress engine drains the acks: the sender's retransmit
+    # window empties before the next transfer
+    conns = [c for b in btls for c in getattr(b, "conns", {}).values()]
+    while any(c.retx for c in conns):
+        for b in btls:
+            b.progress()
+        require(time.perf_counter() - t0 < BTL_DEADLINE_S,
+                "btl: the retransmit window drains")
+    return secs
+
+
+def _btl_pump(btls, until, what):
+    t0 = time.perf_counter()
+    while not until():
+        for b in btls:
+            b.progress()
+        require(time.perf_counter() - t0 < BTL_DEADLINE_S, what)
+
+
+def _btl_path(kind, sink):
+    """A sending btl, its peer rank, the btls to progress and their
+    finalizers for path ``kind`` (self, tcp or sm), delivering to
+    ``sink``."""
+    from ompi_tpu_torch.btl.self_btl import SelfBtl
+    from ompi_tpu_torch.btl.sm import SmBtl
+    from ompi_tpu_torch.btl.tcp import TcpBtl
+    from ompi_tpu_torch.pml.base import HDR_SIZE
+
+    if kind == "self":
+        b = SelfBtl(sink.deliver)
+        return b, 0, [b]
+    if kind.startswith("tcp"):
+        a = TcpBtl(lambda h, p: None, my_rank=0)
+        b = TcpBtl(sink.deliver, my_rank=1)
+    else:
+        a = SmBtl(lambda h, p: None, my_rank=0, n_ranks=2)
+        b = SmBtl(sink.deliver, my_rank=1, n_ranks=2)
+    a.set_peers({1: f"127.0.0.1:{b.port}" if kind.startswith("tcp")
+                 else b.seg_path})
+    b.set_peers({0: f"127.0.0.1:{a.port}" if kind.startswith("tcp")
+                 else a.seg_path})
+    if kind.startswith("tcp"):
+        # dial and take the acceptor's capability ack before any timed
+        # frame: frames sent before it go out in the plain framing
+        a.send(1, bytes(HDR_SIZE), b"")
+        _btl_pump([a, b], lambda: not a.conns[1].await_ack and sink.frames,
+                  "btl: the tcp handshake completes")
+    return a, 1, [a, b]
+
+
+
+def _btl_tcp_counters():
+    from ompi_tpu_torch import quant
+    from ompi_tpu_torch.mca.var import all_pvars
+
+    pv = all_pvars()
+    c = quant.counters()
+    return {"copied": pv["btl_tcp_bytes_copied"].value,
+            "writev": pv["btl_tcp_writev_calls"].value,
+            "wire": pv["btl_tcp_wire_bytes"].value,
+            "retransmits": pv["btl_tcp_retransmits"].value,
+            "crc_errors": pv["btl_tcp_crc_errors"].value,
+            "wire_raw": c["wire_raw"], "wire_comp": c["wire_comp"]}
+
+
+def phase_btl(card, device="cuda", scale=1):
+    """Phase 4l: the byte transfer layer beside the card. Payloads made on
+    ``device`` from a seed (f32 and bf16 of 64 MB, int8 of 16 MB, 64 MB of
+    f32 zeros), staged to the host through the accelerator component (bf16
+    through its int16 view), sent through ``SelfBtl``, a ``TcpBtl`` pair
+    (reliable, ``btl_tcp_reliable=0`` and ``btl_tcp_compress=1``) and an
+    ``SmBtl`` pair (native ring and ``btl_sm_use_native=0``), as one frame
+    (on sm the overflow file) and in fragments as ob1 would (1 MB on tcp,
+    ``btl_sm_eager_limit`` on sm), twice; what arrives is uploaded to
+    ``device`` and held against the original there, bit for bit. Fragments
+    go out at most ob1's pipeline depth (16 MB) ahead of what arrived.
+    Then the reliable pair under ``ft_inject_plan`` ``corrupt(0,1,nth=7)``,
+    its retransmit window twice the stream: the 64 MB f32 stream heals
+    bit-exact, with retransmits and no peer marked failed. ``device="cpu"`` with a ``scale`` rehearses the phase on the
+    host (the sm ring and the fragments shrunk by the same factor, so that
+    the one frame still takes the overflow path and the corrupted stream
+    still has its 64 frames)."""
+    import ompi_tpu_torch.btl.sm  # noqa: F401 registers btl_sm_*
+    import ompi_tpu_torch.btl.tcp  # noqa: F401 registers btl_tcp_*
+    from ompi_tpu_torch import native
+    from ompi_tpu_torch.accelerator import stage_to_host
+    from ompi_tpu_torch.ft import detector, inject
+    from ompi_tpu_torch.mca.var import get_var, set_var
+    from ompi_tpu_torch.pml import base as pml
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    lib_path = native.library_path()
+    fresh = not lib_path.exists()
+    tb = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - tb
+    print(f"btl: native library {lib_path} "
+          f"{'built' if fresh else 'reused'} in {build_s:.2f} s", flush=True)
+    names = [("btl_tcp", k) for k in ("reliable", "compress",
+                                      "retx_window_bytes")] + \
+        [("btl_sm", k) for k in ("use_native", "ring_bytes")]
+    saved = {n: get_var(*n) for n in names}
+    ring_bytes = max(saved[("btl_sm", "ring_bytes")] // scale, 16 << 10)
+    # ob1's sm fragment; a rehearsal's smaller ring takes smaller ones
+    sm_frag = min(int(get_var("btl_sm", "eager_limit")), ring_bytes // 4)
+    tcp_frag = max(BTL_TCP_FRAG // scale, 4096)
+    depth = max(BTL_PIPELINE_DEPTH // scale, 2 * tcp_frag)
+    gen = torch.Generator(device=device).manual_seed(13)
+    payloads = btl_payloads(device, scale, gen)
+    hosts, d2h = {}, {}
+    for name, t in payloads.items():
+        sync()
+        ts = time.perf_counter()
+        src = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        hosts[name] = stage_to_host(src).reshape(-1).view(np.uint8)
+        d2h[name] = round(hosts[name].nbytes / (time.perf_counter() - ts)
+                          / 1e9, 3)
+    originals = {name: _bytes(t) for name, t in payloads.items()}
+    sink = _BtlSink(pml.Header)
+    gbs, counters, h2d = {}, {}, []
+    paths = [("self", {})] + list(BTL_TCP_MODES.items()) + \
+        list(BTL_SM_MODES.items())
+    try:
+        set_var("btl_sm", "ring_bytes", ring_bytes)
+        for path, knobs in paths:
+            fw = "btl_tcp" if path.startswith("tcp") else "btl_sm"
+            for k, v in knobs.items():
+                set_var(fw, k, v)
+            before = _btl_tcp_counters()
+            btl, peer, btls = _btl_path(path, sink)
+            try:
+                frag = tcp_frag if path.startswith("tcp") else sm_frag
+                for framing, size in (("one_frame", None), ("fragments",
+                                                            frag)):
+                    for call in range(BTL_CALLS):
+                        for name, host in hosts.items():
+                            n = host.nbytes
+                            if path.startswith("sm") and size is None:
+                                require(n + 8 + pml.HDR_SIZE + 8 >
+                                        ring_bytes - 192,
+                                        "btl: the one frame takes sm's "
+                                        "overflow path")
+                            secs = _btl_drive(btl.send, peer, btls, sink,
+                                              host, size or n, pml, depth)
+                            ts = time.perf_counter()
+                            got = torch.from_numpy(sink.buf).to(device)
+                            sync()
+                            h2d.append(n / (time.perf_counter() - ts) / 1e9)
+                            require(torch.equal(got, originals[name]),
+                                    f"btl: {name} through {path} "
+                                    f"({framing}, call {call + 1}) arrives "
+                                    "bit for bit")
+                            gbs.setdefault(path, {}).setdefault(
+                                framing, {}).setdefault(name, []).append(
+                                round(n / secs / 1e9, 3))
+            finally:
+                for b in btls:
+                    b.finalize()
+                for k in knobs:
+                    set_var(fw, k, saved[(fw, k)])
+            if path.startswith("tcp"):
+                after = _btl_tcp_counters()
+                d = {k: after[k] - before[k] for k in after}
+                counters[path] = {
+                    "bytes_copied": d["copied"], "writev_calls": d["writev"],
+                    "wire_bytes": d["wire"],
+                    "copied_per_wire_byte": round(
+                        d["copied"] / max(d["wire"], 1), 4),
+                    "writev_calls_per_wire_mb": round(
+                        d["writev"] / max(d["wire"], 1) * (1 << 20), 4)}
+                if path == "tcp_compressed":
+                    require(d["wire_comp"] > 0,
+                            "btl: btl_tcp_compress=1 compressed frames")
+                    counters[path]["compressed_wire_ratio"] = round(
+                        d["wire_raw"] / d["wire_comp"], 3)
+        # the reliable pair under a corrupting wire. The retransmit window
+        # holds the stream: a hole keeps the cumulative ack behind while
+        # the frames above it arrive, so ob1's pacing on delivered bytes
+        # does not bound what is retained, and a smaller window (the
+        # default 8 MB, or twice the pipeline depth) evicts a frame that
+        # a NACK later asks for; the link then escalates
+        before = _btl_tcp_counters()
+        failed_before = detector.known_failed()
+        set_var("btl_tcp", "retx_window_bytes", 2 * hosts["f32"].nbytes)
+        inject.install(BTL_CORRUPT)
+        btl, peer, btls = _btl_path("tcp", sink)
+        try:
+            host = hosts["f32"]
+            secs = _btl_drive(btl.send, peer, btls, sink, host, tcp_frag,
+                              pml, depth)
+            got = torch.from_numpy(sink.buf).to(device)
+            require(torch.equal(got, originals["f32"]),
+                    f"btl: the f32 stream under {BTL_CORRUPT} heals bit "
+                    "for bit")
+            conns = [c for b in btls for c in b.conns.values()]
+            require(all(c.dead is None and c.state == "est" for c in conns),
+                    "btl: no link died under the corrupting wire")
+        finally:
+            inject.uninstall()
+            for b in btls:
+                b.finalize()
+        after = _btl_tcp_counters()
+        heal = {"retransmits": after["retransmits"] - before["retransmits"],
+                "crc_errors": after["crc_errors"] - before["crc_errors"],
+                "frames": sink.frames, "gbs": round(host.nbytes / secs / 1e9,
+                                                    3)}
+        require(heal["retransmits"] > 0 and heal["crc_errors"] > 0,
+                f"btl: {BTL_CORRUPT} was caught by the CRC and retransmitted")
+        require(detector.known_failed() == failed_before,
+                "btl: no peer marked failed under the corrupting wire")
+    finally:
+        for n, v in saved.items():
+            set_var(*n, v)
+    secs = time.perf_counter() - t0
+    out = {"card": card, "scale": scale, "library": lib_path.name,
+           "native_build_s": round(build_s, 3), "built": fresh,
+           "bytes": {n: h.nbytes for n, h in hosts.items()},
+           "gbs": gbs, "tcp_counters": counters, "corrupt_heal": heal,
+           "d2h_gbs": d2h, "h2d_gbs": [round(min(h2d), 3),
+                                       round(max(h2d), 3)],
+           "phase_s": round(secs, 1)}
+    print(json.dumps({"btl": out}), flush=True)
+    print(f"phase 4l: {len(hosts)} payloads bit-exact through "
+          f"{len(paths)} paths, one frame and fragments, {BTL_CALLS} calls "
+          f"each; {BTL_CORRUPT} healed with {heal['retransmits']} "
+          f"retransmits; {secs:.1f} s on {card}", flush=True)
     return out
 
 
@@ -2911,6 +3237,7 @@ def main() -> int:
     phase_observe(card)
     phase_typed(card)
     phase_diagnostics(card)
+    phase_btl(card)
 
     # 5. where the time goes
     if args.profile:

@@ -28,6 +28,9 @@ ERR_PENDING = 19
 ERR_FILE = 27
 ERR_WIN = 45
 ERR_UNSUPPORTED_OPERATION = 63
+# ULFM (MPIX_ERR_PROC_FAILED): the peer was declared failed (the tcp btl
+# raises it for a send to a dead link whose peer the detector confirmed)
+ERR_PROC_FAILED = 75
 # ULFM (MPIX_ERR_REVOKED): an operation on a revoked communicator
 ERR_REVOKED = 77
 # the runtime semantics sanitizer (runtime/sanitizer.py) at level >= 2
@@ -50,6 +53,7 @@ _ERROR_STRINGS = {
     ERR_FILE: "MPI_ERR_FILE: invalid file handle",
     ERR_WIN: "MPI_ERR_WIN: invalid window",
     ERR_UNSUPPORTED_OPERATION: "MPI_ERR_UNSUPPORTED_OPERATION",
+    ERR_PROC_FAILED: "MPIX_ERR_PROC_FAILED: process failure",
     ERR_REVOKED: "MPIX_ERR_REVOKED: communicator revoked",
     ERR_SANITIZER: "MPIX_ERR_SANITIZER: MPI semantics violation "
                    "detected by the runtime sanitizer",

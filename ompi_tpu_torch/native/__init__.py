@@ -1,9 +1,11 @@
 """Native (C++) components of the port and their ctypes bindings.
 
 The port of the loader of ``ompi_tpu/native/__init__.py``: ``compile_so``
-and a ``get_lib`` that binds the datatype engine's runs engine
-(``convertor.cpp``: ``ompi_tpu_pack_runs`` and ``ompi_tpu_unpack_runs``).
-The sm ring's symbols come with the sm btl.
+and a ``get_lib`` that binds the shared-memory ring of the sm btl
+(``sm_ring.cpp``: the ``smr_*`` symbols, driven by ``native/ring.py``) and
+the datatype engine's runs engine (``convertor.cpp``:
+``ompi_tpu_pack_runs`` and ``ompi_tpu_unpack_runs``). Both sources build
+into one library.
 
 The library is built with the system ``g++`` at first use into
 ``build/ompi_tpu_torch/`` at the root of the checkout, named by a digest
@@ -12,9 +14,10 @@ an edited source is rebuilt and an unchanged one reused. Nothing is built
 when a module is imported.
 
 Unlike the reference, a failed build or load raises ``NativeBuildError``
-with the compiler's output: nothing falls back quietly. The caller
-(``core/convertor.py``) takes its numpy path only below
-``_NATIVE_MIN_BYTES``, where the reference takes it too.
+with the compiler's output: nothing falls back quietly. The convertor
+takes its numpy path only below ``_NATIVE_MIN_BYTES``, where the reference
+takes it too; the ring takes its Python path only where the caller asks
+for it (``btl_sm_use_native=0``).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from typing import Optional, Sequence
 
 from ompi_tpu_torch.ops._build import BUILD_DIR
 
-SOURCES = (Path(__file__).resolve().parent / "convertor.cpp",)
+_HERE = Path(__file__).resolve().parent
+SOURCES = (_HERE / "sm_ring.cpp", _HERE / "convertor.cpp")
 CXX = ("g++", "-O2", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
@@ -96,6 +100,25 @@ def get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
         except OSError as e:
             raise NativeBuildError(f"cannot load {path}: {e}") from e
+        lib.smr_header_bytes.restype = ctypes.c_uint64
+        lib.smr_init.restype = ctypes.c_int
+        lib.smr_init.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        lib.smr_capacity.restype = ctypes.c_uint64
+        lib.smr_capacity.argtypes = [ctypes.c_void_p]
+        lib.smr_push2.restype = ctypes.c_int
+        lib.smr_push2.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_uint64, ctypes.c_void_p,
+                                  ctypes.c_uint64]
+        lib.smr_pop.restype = ctypes.c_int64
+        lib.smr_pop.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_uint64]
+        lib.smr_peek.restype = ctypes.c_int64
+        lib.smr_peek.argtypes = [ctypes.c_void_p,
+                                 ctypes.POINTER(ctypes.c_uint64)]
+        lib.smr_advance.restype = None
+        lib.smr_advance.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        lib.smr_used.restype = ctypes.c_uint64
+        lib.smr_used.argtypes = [ctypes.c_void_p]
         for fn in (lib.ompi_tpu_pack_runs, lib.ompi_tpu_unpack_runs):
             fn.restype = None
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,

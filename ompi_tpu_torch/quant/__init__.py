@@ -4,8 +4,9 @@ The port of the part of ``ompi_tpu/quant/__init__.py`` that mesh mode
 reads: the six ``quant_*`` variables (``:40-75``), read when a
 communicator is built (``negotiate``), and the three counters with their
 pvars (``:92-101``), bumped by the quantized allreduce (``coll/quant.py``),
-which also records ``spc`` ``quant_<verb>``. The tcp compression counters
-belong to process mode and are not ported.
+which also records ``spc`` ``quant_<verb>``; and the tcp btl's compression
+counters (``note_wire``, ``:122-135``), read by its
+``btl_tcp_compress_ratio`` and ``btl_tcp_compress_saved_bytes`` pvars.
 """
 
 from __future__ import annotations
@@ -55,6 +56,9 @@ _counts: Dict[str, int] = {
     "colls": 0,        # collectives that took the quantized path
     "bytes_wire": 0,   # quantized payload bytes sent
     "bytes_saved": 0,  # full-precision bytes minus bytes_wire
+    "wire_raw": 0,     # tcp-compressed frames: payload bytes pre-zlib
+    "wire_comp": 0,    # tcp-compressed frames: payload bytes on wire
+    "wire_frames": 0,  # tcp frames that went out compressed
 }
 
 register_pvar("quant", "colls", lambda: _counts["colls"],
@@ -77,6 +81,21 @@ def note_coll(verb: str, raw_bytes: int, wire_bytes: int) -> None:
         _counts["bytes_wire"] += int(wire_bytes)
         _counts["bytes_saved"] += max(int(raw_bytes) - int(wire_bytes), 0)
     spc.record("quant_" + verb)
+
+
+def note_wire(raw_bytes: int, comp_bytes: int) -> None:
+    """One tcp frame went out zlib-compressed (the btl/tcp.py hook): the
+    payload was ``raw_bytes`` and ``comp_bytes`` hit the wire."""
+    from ompi_tpu_torch.runtime import metrics as _metrics
+
+    with _lock:
+        _counts["wire_raw"] += int(raw_bytes)
+        _counts["wire_comp"] += int(comp_bytes)
+        _counts["wire_frames"] += 1
+    spc.record("btl_tcp_compressed_frames")
+    if _metrics._enable_var._value and raw_bytes > 0:
+        _metrics.observe("btl_tcp_compress_pct",
+                         100.0 * comp_bytes / raw_bytes)
 
 
 def counters() -> Dict[str, int]:

@@ -36,6 +36,10 @@ def _load_everything() -> None:
     import ompi_tpu_torch.runtime.linkmodel  # noqa: F401 linkmodel_*
     import ompi_tpu_torch.runtime.forensics  # noqa: F401 forensics_*
     import ompi_tpu_torch.runtime.sanitizer  # noqa: F401 sanitizer_*
+    import ompi_tpu_torch.runtime.progress  # noqa: F401 runtime_idle_block_us
+    import ompi_tpu_torch.btl.self_btl  # noqa: F401 btl framework: self
+    import ompi_tpu_torch.btl.sm  # noqa: F401 btl_sm_*
+    import ompi_tpu_torch.btl.tcp  # noqa: F401 btl_tcp_* and their pvars
 
 
 def print_header(out) -> None:

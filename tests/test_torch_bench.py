@@ -406,6 +406,7 @@ def test_bench_rows_are_mirrored_into_the_metrics_gauges(world, cheap_timers):
     from ompi_tpu_torch.runtime import metrics
     from tools.promexport import validate
 
+    samplers = dict(metrics._samplers)  # the tcp btl's, put back below
     metrics.reset_for_testing()
     try:
         rows = bench.bench_quant_sweep(world, W, sizes=(1 << 16, 1 << 12))
@@ -429,3 +430,4 @@ def test_bench_rows_are_mirrored_into_the_metrics_gauges(world, cheap_timers):
         assert len(metrics.snapshot()["gauges"]) == 2 * 2 + 2 + 6
     finally:
         metrics.reset_for_testing()
+        metrics._samplers.update(samplers)

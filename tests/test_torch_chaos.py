@@ -12,12 +12,18 @@
 - The detector: ``known_failed``, the failure propagator and observers, the
   link journal and its forensics provider.
 
-Waiting for the btl (A.14.4) and ob1 (A.14.5): the tcp connect retries,
-``drain_posted_for_src``, the resilient decorator, the mpilint guard, the
-ob1 revoke drain, the recv-side rules over sliced tcp frames and the
-process-mode chaos runs.
+With the tcp btl (A.14.4), on both packages: the link-fault grammar of
+``tests/test_link.py:58-125`` (the cases the lines above lack), the tcp
+connect retries riding out a late listener and exhausting, and the
+receive-side rules filtering frames sliced from the rx pool block.
+
+Waiting for ob1 (A.14.5): ``drain_posted_for_src``, the resilient
+decorator, the ob1 revoke drain and the process-mode chaos runs; the
+mpilint guard waits for the tools (A.14.10).
 """
 
+import socket
+import threading
 import time
 
 import numpy as np
@@ -33,6 +39,8 @@ from ompi_tpu_torch.ft import inject as tinj
 from ompi_tpu_torch.ft import revoke as trev
 from ompi_tpu_torch.mca import var as tvar
 from ompi_tpu_torch.pml import base as tbase
+from tests.test_torch_btl_fixture import (  # noqa: F401 fixtures
+    P, btl_clean)
 
 PLAN = ("kill(1,after=40); drop(0,1,frac=0.5); drop(2,*,nth=3,side=recv);"
         "delay(0,1,ms=15); sever(0,1); dup(0,1,nth=2)")
@@ -441,3 +449,179 @@ def test_detector_is_a_forensics_provider(clean_detectors):
     from ompi_tpu_torch.runtime import forensics as fx
 
     assert fx.debug_state()["ft.detector"] == {"known_failed": []}
+
+
+# ----------------------------------------- link-fault grammar (test_link)
+MODS = {"jax": jinj, "torch": tinj}
+
+
+@pytest.mark.parametrize("pkg", sorted(MODS))
+def test_plan_grammar_link_faults(pkg):
+    inject = MODS[pkg]
+    rules = inject.parse_plan(
+        "sever_transient(0,1,after=8,down_ms=250);"
+        "corrupt(0,1,nth=2);corrupt(1,*,frac=0.25);blackhole(0,1,ms=40)")
+    assert [r.action for r in rules] == \
+        ["sever_transient", "corrupt", "corrupt", "blackhole"]
+    assert rules[0].after == 8 and rules[0].ms == 250.0
+    assert rules[1].nth == 2
+    assert rules[2].dst is None and rules[2].frac == 0.25
+    assert rules[3].ms == 40.0
+
+
+@pytest.mark.parametrize("bad", ["sever_transient(0,1,side=recv)",
+                                 "blackhole(0,1,ms=0)"])
+def test_plan_grammar_link_rejects(bad):
+    with pytest.raises(ValueError) as jerr:
+        jinj.parse_plan(bad)
+    with pytest.raises(ValueError) as terr:
+        tinj.parse_plan(bad)
+    assert str(terr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("pkg", sorted(MODS))
+def test_sever_transient_latches_and_opens_down_window(pkg):
+    inject = MODS[pkg]
+    inject.install("sever_transient(0,1,after=2,down_ms=60)")
+    assert inject.wire_send(0, 1) == 0          # frame 1: below after=
+    v = inject.wire_send(0, 1)                  # frame 2: fires
+    assert v & inject.SEVER and v & inject.TRANSIENT
+    assert inject.wire_send(0, 1) == 0          # latched: fires once
+    assert inject.link_down(0, 1)               # window open (unordered)
+    assert inject.link_down(1, 0)
+    t0 = time.monotonic()
+    while inject.link_down(0, 1):
+        assert time.monotonic() - t0 < 5.0
+        time.sleep(0.005)
+    assert inject.fault_counts()["sever_transient"] == 1
+
+
+@pytest.mark.parametrize("pkg", sorted(MODS))
+def test_permanent_sever_carries_no_transient_bit(pkg):
+    inject = MODS[pkg]
+    inject.install("sever(0,1)")
+    v = inject.wire_send(0, 1)
+    assert v & inject.SEVER and not (v & inject.TRANSIENT)
+
+
+@pytest.mark.parametrize("pkg", sorted(MODS))
+def test_blackhole_window_drops_then_clears(pkg):
+    inject = MODS[pkg]
+    inject.install("blackhole(0,1,ms=50)")
+    assert inject.wire_send(0, 1) & inject.DROP  # opens + drops
+    assert inject.wire_send(0, 1) & inject.DROP  # still inside window
+    t0 = time.monotonic()
+    while inject.wire_send(0, 1) & inject.DROP:
+        assert time.monotonic() - t0 < 5.0
+        time.sleep(0.005)
+    assert inject.wire_send(0, 1) == 0           # window closed for good
+
+
+def test_corrupt_frac_is_seed_deterministic():
+    def schedule(inject, seed):
+        inject.install("corrupt(0,1,frac=0.5)", seed=seed)
+        return [bool(inject.wire_send(0, 1) & inject.CORRUPT)
+                for _ in range(64)]
+
+    a, b, c = schedule(tinj, 11), schedule(tinj, 11), schedule(tinj, 12)
+    assert a == b == schedule(jinj, 11)
+    assert c == schedule(jinj, 12)
+    assert a != c
+    assert any(a) and not all(a)
+
+
+# --------------------------------------------------- the tcp btl cases
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def test_tcp_connect_retry_rides_out_late_listener(P):
+    P.set("btl_tcp", "retries", 12)
+    P.set("btl_tcp", "backoff_ms", 20.0)
+    hdr_size = P.pml.HDR_SIZE
+    port = _free_port()
+    btl = P.tcp.TcpBtl(lambda h, p: None, my_rank=0)
+    btl.set_peers({1: f"127.0.0.1:{port}"})
+    received = []
+
+    def late_listener():
+        time.sleep(0.25)
+        ls = socket.socket()
+        ls.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        ls.bind(("127.0.0.1", port))
+        ls.listen(1)
+        ls.settimeout(10.0)
+        try:
+            conn, _ = ls.accept()
+        except OSError:
+            ls.close()
+            return
+        conn.settimeout(5.0)
+        while len(b"".join(received)) < 4 + 4 + hdr_size + 5:
+            chunk = conn.recv(4096)
+            if not chunk:
+                break
+            received.append(chunk)
+        conn.close()
+        ls.close()
+
+    t = threading.Thread(target=late_listener, daemon=True)
+    t.start()
+    before = P.spc.get("btl_tcp_connect_retries")
+    try:
+        btl.send(1, b"\0" * hdr_size, b"hello")  # connects lazily
+        for _ in range(200):  # drain any backpressured bytes
+            btl.progress()
+            if len(b"".join(received)) >= 4 + 4 + hdr_size + 5:
+                break
+            time.sleep(0.01)
+    finally:
+        t.join(timeout=10)
+        btl.finalize()
+    assert P.spc.get("btl_tcp_connect_retries") > before
+    blob = b"".join(received)
+    assert blob.endswith(b"hello"), blob[-16:]
+
+
+def test_tcp_connect_retry_exhausts_and_raises(P):
+    P.set("btl_tcp", "retries", 2)
+    P.set("btl_tcp", "backoff_ms", 2.0)
+    btl = P.tcp.TcpBtl(lambda h, p: None, my_rank=0)
+    btl.set_peers({1: f"127.0.0.1:{_free_port()}"})
+    try:
+        t0 = time.monotonic()
+        with pytest.raises(OSError):
+            btl.send(1, b"\0" * P.pml.HDR_SIZE, b"x")
+        assert time.monotonic() - t0 < 10.0  # bounded, not a 30 s stall
+    finally:
+        btl.finalize()
+
+
+def test_recv_side_rules_filter_sliced_frames(P):
+    P.inject.install("drop(7,0,nth=3,side=recv)")
+    P.inject.note_rank(0)
+    got = []
+    # the wrap is installed at construction (the plan is armed)
+    a = P.tcp.TcpBtl(lambda h, p: got.append(bytes(p)), my_rank=0)
+    b = P.tcp.TcpBtl(lambda h, p: None, my_rank=7)
+    b.set_peers({0: f"127.0.0.1:{a.port}"})
+    try:
+        hdr = P.pml.pack_header(1, 7, 0, 3, 1, 4, 0, 0)
+        payload = bytes(range(256)) * 64
+        for _ in range(3):
+            b.send(0, hdr, payload)
+        t0 = time.monotonic()
+        while len(got) < 2 and time.monotonic() - t0 < 10:
+            a.progress()
+            b.progress()
+        assert got == [payload, payload], [len(g) for g in got]
+        assert P.inject.fault_counts()["drop"] == 1
+    finally:
+        a.finalize()
+        b.finalize()

@@ -14,10 +14,15 @@ The port's own cases: ``runtime.progress`` is a provider;
 ``forensics_enable`` is set; a mesh-mode i-verb's request ticks the
 completion counter when it completes.
 
+With the tcp btl (A.14.4), on both packages: the legacy wire paths stamp
+the rx/tx evidence of the ``btl.tcp`` provider, whose dump clamps a torn
+rx span; the live transport is that provider and its degraded-link
+rollup is the ``btl.tcp.link`` pending probe.
+
 Waiting for ob1 (A.14.5): every case that posts a process-mode Irecv, the
 ob1 and sched/era providers' clipping, the watchdog dump and the two
-process-mode proofs; for the btl (A.14.4): the wire-path evidence; for the
-tools (A.14.10): ``mpidiag`` and ``mpitop``'s stall column.
+process-mode proofs; for the tools (A.14.10): ``mpidiag`` and ``mpitop``'s
+stall column.
 """
 
 import json
@@ -37,6 +42,8 @@ from ompi_tpu_torch.core import request as treq
 from ompi_tpu_torch.mca import var as tvar
 from ompi_tpu_torch.runtime import forensics as T
 from ompi_tpu_torch.runtime import progress as tprog
+from tests.test_torch_btl_fixture import (  # noqa: F401 fixtures
+    P, btl_clean)
 from tests.test_torch_mca_fixture import mca_watched  # noqa: F401 fixture
 
 PKGS = {"port": (T, tvar, tprog, treq), "jax": (J, jvar, jprog, jreq)}
@@ -455,3 +462,52 @@ def test_cvars_registered_and_the_plane_is_off_by_default():
         t, j = tvar.all_vars()[name], jvar.all_vars()[name]
         assert (t.default, t.typ, t.level) == (j.default, j.typ, j.level)
     assert T.FORENSICS_TAG == J.FORENSICS_TAG == -4800
+
+
+# ------------------------------------------------- the tcp btl's evidence
+
+def test_legacy_wire_paths_stamp_rx_tx_evidence(P):
+    P.set("forensics", "enable", True)
+    P.set("btl_tcp", "copy_mode", 1)
+    got = []
+    a = P.tcp.TcpBtl(lambda h, p: got.append(bytes(p)), my_rank=0)
+    b = P.tcp.TcpBtl(lambda h, p: got.append(bytes(p)), my_rank=1)
+    try:
+        a.set_peers({1: f"127.0.0.1:{b.port}"})
+        b.set_peers({0: f"127.0.0.1:{a.port}"})
+        hdr = P.pml.pack_header(1, 0, 0, 5, 1, 5, 0, 0)
+        a.send(1, hdr, np.frombuffer(b"hello", np.uint8))
+        deadline = time.monotonic() + 10
+        while not got and time.monotonic() < deadline:
+            a.progress()
+            b.progress()
+        assert got == [b"hello"]
+        assert any(c["last_tx_age_s"] is not None
+                   for c in a.debug_state()["conns"])
+        assert any(c["last_rx_age_s"] is not None
+                   for c in b.debug_state()["conns"])
+        conn = next(iter(b.conns.values()))
+        r0, r1 = conn.rstart, conn.rend
+        conn.rstart, conn.rend = 5000, 100
+        try:
+            assert all(c["rx_partial_bytes"] >= 0
+                       for c in b.debug_state()["conns"])
+        finally:
+            conn.rstart, conn.rend = r0, r1
+    finally:
+        a.finalize()
+        b.finalize()
+
+
+def test_the_live_tcp_btl_is_the_provider_and_probe(P):
+    fx = P.forensics
+    btl = P.tcp.TcpBtl(lambda h, p: None, my_rank=4)
+    try:
+        state = fx.debug_state()["btl.tcp"]
+        json.dumps(state)
+        assert state["rank"] == 4 and state["conns"] == []
+        assert sorted(state) == sorted(btl.debug_state())
+        assert fx._pending_probes["btl.tcp.link"]() == 0
+    finally:
+        btl.finalize()
+    assert "btl.tcp" not in fx.debug_state()  # weakly bound: gone

@@ -9,16 +9,26 @@ folded from a sequence of conn rows (SRTT/RTTVAR, the goodput EWMA by
 class, directional loss ppm), equal between the packages at the same fold
 instants.
 
-Waiting for the btl (A.14.4): the passive SRTT samples off the reliable
-envelope's acks, Karn's filter on retransmitted frames, the adaptive
-retransmit timer, the disabled-path check over a real conn and the
-process-mode runs with ``mpinet``; ``coll/hier``'s floor waits for A.14.6.
+With the tcp btl (A.14.4), on both packages over real loopback conns (the
+``P`` fixture of ``tests/test_torch_btl_fixture.py``): the passive SRTT
+samples off the reliable envelope's acks, the ack batch sampling its
+youngest frame, Karn's filter on retransmitted frames, the goodput credited
+by class, the adaptive retransmit timer's bounds, a drop healed before the
+fixed ceiling, no spurious strikes on a slow link, and the disabled path
+that never calls the registry. The tcp btls register their conn source
+at import, as the reference's does.
+
+Waiting for ob1 (A.14.5): the process-mode runs with ``mpinet``;
+``coll/hier``'s floor waits for A.14.6.
 """
 
 import json
 import time
 
 import pytest
+
+import ompi_tpu.btl.tcp  # noqa: F401 registers the conn source at import
+import ompi_tpu_torch.btl.tcp  # noqa: F401 registers the conn source
 
 from ompi_tpu import qos as jq
 from ompi_tpu.mca import var as jvar
@@ -30,15 +40,18 @@ from ompi_tpu_torch.mca import var as tvar
 from ompi_tpu_torch.pml import base as tbase
 from ompi_tpu_torch.runtime import linkmodel as T
 from ompi_tpu_torch.runtime import metrics as TM
+from tests.test_torch_btl_fixture import (  # noqa: F401 fixtures
+    P, btl_clean, pump, tcp_pair)
 from tests.test_torch_mca_fixture import mca_watched  # noqa: F401 fixture
 
 
 @pytest.fixture(autouse=True)
 def lm_on():
     """The plane on around each test, with the registry and source reset
-    (the JAX package's source, its tcp btl's row walker, and its metrics
+    (each package's source, its tcp btl's row walker, and its metrics
     samplers are put back)."""
     jsrc, jsamplers = J._source, dict(JM._samplers)
+    tsrc, tsamplers = T._source, dict(TM._samplers)
     for m, v in ((T, tvar), (J, jvar)):
         v.set_var("linkmodel", "enable", True)
         m.reset_for_testing()
@@ -47,9 +60,10 @@ def lm_on():
         v.set_var("linkmodel", "enable", False)
         v.set_var("linkmodel", "probe_ms", 0.0)
         m.reset_for_testing()
-    T.register_source(None)
+    T.register_source(tsrc)
     J.register_source(jsrc)
     JM._samplers.update(jsamplers)
+    TM._samplers.update(tsamplers)
 
 
 class _FakePml:
@@ -264,3 +278,210 @@ def test_cvars_pvars_registered():
                  "linkmodel_edges", "linkmodel_srtt_max_us",
                  "linkmodel_goodput_bps"):
         assert name in tvar.all_pvars(), name
+
+
+# ------------------------------------------------- over real tcp conns
+HDR = tbase.pack_header(1, 7, 0, 3, 1, 4, 0, 0)
+HDR_LAT = tbase.pack_header(1, 7, 0, 3, 1, 4, 0, 0, qos=tq.LATENCY)
+
+
+def _established(P, got_a, got_b):
+    """Pair with the 7 -> 0 conn established, enveloped, and drained."""
+    a, b = tcp_pair(P.tcp, P.tcp, got_a, got_b)
+    b.send(0, HDR, b"warmup")
+    pump([a, b], lambda: len(got_a) == 1)
+    conn = b.conns[0]
+    assert conn.rel
+    pump([a, b], lambda: not conn.retx, timeout=3.0)
+    return a, b, conn
+
+
+def _fabricate(conn, ages, karn=()):
+    now = time.monotonic()
+    seqs = []
+    with conn.wlock:
+        for i, age in enumerate(ages):
+            conn.tx_seq += 1
+            conn.retx[conn.tx_seq] = (10, [], now - age, 0)
+            conn.retx_bytes += 10
+            seqs.append(conn.tx_seq)
+            if i in karn:
+                conn.karn.add(conn.tx_seq)
+    return seqs
+
+
+def test_passive_srtt_samples_on_ack(P):
+    P.set("btl_tcp", "reliable", 1)
+    got_a, got_b = [], []
+    a, b, conn = _established(P, got_a, got_b)
+    try:
+        for i in range(4):
+            b.send(0, HDR, b"rtt-%d" % i)
+            pump([a, b], lambda: not conn.retx, timeout=3.0)
+        assert conn.rtt_n >= 1
+        assert 0.0 < conn.srtt < 1.0
+        assert conn.rttvar >= 0.0
+    finally:
+        a.finalize()
+        b.finalize()
+
+
+def test_ack_batch_samples_youngest_frame(P):
+    P.set("btl_tcp", "reliable", 1)
+    got_a, got_b = [], []
+    a, b, conn = _established(P, got_a, got_b)
+    try:
+        n0, srtt0 = conn.rtt_n, conn.srtt
+        _fabricate(conn, ages=[0.8, 0.2])
+        b._rel_ack_rx(conn, conn.tx_seq)
+        assert conn.rtt_n == n0 + 1
+        assert conn.srtt < srtt0 + 0.3, (srtt0, conn.srtt)
+        assert not conn.retx
+    finally:
+        a.finalize()
+        b.finalize()
+
+
+def test_karn_filter_rejects_retransmitted_samples(P):
+    P.set("btl_tcp", "reliable", 1)
+    got_a, got_b = [], []
+    a, b, conn = _established(P, got_a, got_b)
+    try:
+        n0 = conn.rtt_n
+        _fabricate(conn, ages=[0.5, 0.1], karn=(1,))
+        b._rel_ack_rx(conn, conn.tx_seq)
+        assert conn.rtt_n == n0 + 1
+        assert conn.srtt > 0.05
+        assert not conn.karn
+        n1, srtt1, var1 = conn.rtt_n, conn.srtt, conn.rttvar
+        _fabricate(conn, ages=[0.9, 0.9], karn=(0, 1))
+        b._rel_ack_rx(conn, conn.tx_seq)
+        assert (conn.rtt_n, conn.srtt, conn.rttvar) == (n1, srtt1, var1)
+        assert not conn.karn
+    finally:
+        a.finalize()
+        b.finalize()
+
+
+def test_goodput_credits_acked_bytes_per_class(P):
+    P.set("btl_tcp", "reliable", 1)
+    lm = P.linkmodel
+    got_a, got_b = [], []
+    a, b, conn = _established(P, got_a, got_b)
+    try:
+        lm._fold(force=True)  # arm the per-edge rate baseline
+        time.sleep(0.06)      # > _FOLD_MIN_S: the next fold rates a dt
+        for i in range(12):
+            b.send(0, HDR, b"n" * 256)
+            b.send(0, HDR_LAT, b"l" * 64)
+        pump([a, b], lambda: not conn.retx, timeout=3.0)
+        assert conn.acked_b[P.qos.NORMAL] > conn.acked_b[P.qos.LATENCY] > 0
+        assert conn.acked_b[P.qos.BULK] == 0
+        lm._fold(force=True)
+        row = lm.edge(0)
+        assert row is not None
+        assert row["goodput_bps"]["normal"] > 0.0
+        assert row["goodput_bps"]["latency"] > 0.0
+        assert row["goodput_bps"]["bulk"] == 0.0
+        assert row["loss_ppm"] == 0.0
+    finally:
+        a.finalize()
+        b.finalize()
+
+
+def test_conn_timeout_adaptive_bounds(P):
+    P.set("btl_tcp", "reliable", 1)
+    P.set("btl_tcp", "retx_adaptive", 1)
+    P.set("btl_tcp", "rtt_min_samples", 8)
+    got_a, got_b = [], []
+    a, b, conn = _established(P, got_a, got_b)
+    try:
+        conn.srtt, conn.rttvar, conn.rtt_n = 0.002, 0.0005, 7
+        assert b._conn_timeout(conn, 0.2) == 0.2
+        conn.rtt_n = 8
+        assert b._conn_timeout(conn, 0.2) == pytest.approx(0.025)
+        conn.srtt, conn.rttvar = 0.060, 0.010
+        assert b._conn_timeout(conn, 0.2) == pytest.approx(0.100)
+        conn.srtt = 0.500
+        assert b._conn_timeout(conn, 0.2) == 0.2
+        P.set("btl_tcp", "retx_adaptive", 0)
+        conn.srtt, conn.rttvar = 0.002, 0.0005
+        assert b._conn_timeout(conn, 0.2) == 0.2
+    finally:
+        a.finalize()
+        b.finalize()
+
+
+def test_adaptive_timer_heals_drop_before_fixed_ceiling(P):
+    P.set("btl_tcp", "reliable", 1)
+    P.set("btl_tcp", "retx_timeout_ms", 4000.0)
+    P.set("btl_tcp", "retx_adaptive", 1)
+    P.set("btl_tcp", "rtt_min_samples", 4)
+    got_a, got_b = [], []
+    a, b, conn = _established(P, got_a, got_b)
+    try:
+        while conn.rtt_n < 4:
+            for j in range(8):
+                b.send(0, HDR, b"warm-%d" % j)
+            pump([a, b], lambda: not conn.retx, timeout=3.0)
+        assert conn.srtt < 0.01, conn.srtt
+        delivered = len(got_a)
+        P.inject.install("drop(7,0,nth=2)")
+        t0 = time.monotonic()
+        b.send(0, HDR, b"fast-0")
+        b.send(0, HDR, b"fast-1")  # dropped: only the timer can heal it
+        pump([a, b], lambda: len(got_a) == delivered + 2, timeout=3.5)
+        assert time.monotonic() - t0 < 2.0  # the 4 s ceiling never ran
+        assert conn.retx_n >= 1
+    finally:
+        a.finalize()
+        b.finalize()
+
+
+def test_slow_link_no_spurious_strikes(P):
+    P.set("btl_tcp", "reliable", 1)
+    P.set("btl_tcp", "retx_adaptive", 1)
+    P.set("btl_tcp", "rtt_min_samples", 8)
+    P.set("btl_tcp", "retx_timeout_ms", 1000.0)
+    got_a, got_b = [], []
+    a, b, conn = _established(P, got_a, got_b)
+    sent = []
+    real_transmit = b._rel_transmit
+    try:
+        conn.srtt, conn.rttvar, conn.rtt_n = 0.300, 0.010, 20
+        _fabricate(conn, ages=[0.1])
+        b._rel_transmit = lambda c, vecs, cls: sent.append(cls)
+        b._rel_tick(time.monotonic())
+        assert not sent and conn.retx_strikes == 0 and conn.retx_n == 0
+        conn.srtt, conn.rttvar = 0.001, 0.001
+        b._rel_tick(time.monotonic())
+        assert sent and conn.retx_strikes == 1 and conn.retx_n == 1
+    finally:
+        b._rel_transmit = real_transmit
+        with conn.wlock:
+            conn.retx.clear()
+            conn.retx_bytes = 0
+        a.finalize()
+        b.finalize()
+
+
+def test_disabled_path_never_calls_registry(P, monkeypatch):
+    P.set("linkmodel", "enable", False)
+    monkeypatch.setattr(
+        P.linkmodel, "note_rtt_sample",
+        lambda *a, **k: pytest.fail("registry hook on disabled path"))
+    P.set("btl_tcp", "reliable", 1)
+    got_a, got_b = [], []
+    a, b, conn = _established(P, got_a, got_b)
+    try:
+        b.send(0, HDR, b"quiet")
+        pump([a, b], lambda: not conn.retx, timeout=3.0)
+        assert conn.rtt_n >= 1  # the conn estimator still runs
+    finally:
+        a.finalize()
+        b.finalize()
+
+
+def test_the_tcp_btls_are_the_conn_sources(P):
+    assert P.linkmodel._source is P.tcp._linkmodel_rows
+    assert "btl_tcp_link" in P.metrics._samplers

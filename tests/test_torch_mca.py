@@ -63,6 +63,20 @@ SHARED.update((n, n) for n in [
     "linkmodel_rtt_degraded_us", "linkmodel_loss_degraded_ppm",
     "forensics_enable", "forensics_stall_threshold_ms", "sanitizer_enable",
     "sanitizer_level", "sanitizer_deadlock_timeout"])
+# the byte transfer layer's variables keep the reference's names too
+SHARED.update((n, n) for n in [
+    "btl_btl", "btl_sm_ring_bytes", "btl_sm_eager_limit",
+    "btl_sm_fail_after", "btl_sm_use_native", "btl_tcp_eager_limit",
+    "btl_tcp_retries", "btl_tcp_backoff_ms", "btl_tcp_bind_host",
+    "btl_tcp_compress", "btl_tcp_compress_min_bytes",
+    "btl_tcp_writev_max_vecs", "btl_tcp_copy_mode",
+    "btl_tcp_shape_quantum_bytes", "btl_tcp_shape_weights",
+    "btl_tcp_shape_max_defer_bytes", "btl_tcp_sndbuf", "btl_tcp_rcvbuf",
+    "btl_tcp_reliable", "btl_tcp_retx_window_bytes",
+    "btl_tcp_retx_timeout_ms", "btl_tcp_link_retries",
+    "btl_tcp_link_backoff_ms", "btl_tcp_link_deadline_s",
+    "btl_tcp_retx_adaptive", "btl_tcp_rtt_min_samples",
+    "runtime_idle_block_us"])
 
 
 def _load_jax():
@@ -81,6 +95,10 @@ def _load_jax():
     import ompi_tpu.runtime.forensics  # noqa: F401
     import ompi_tpu.runtime.sanitizer  # noqa: F401
     import ompi_tpu.runtime.smsc  # noqa: F401
+    import ompi_tpu.runtime.progress  # noqa: F401
+    import ompi_tpu.btl.self_btl  # noqa: F401
+    import ompi_tpu.btl.sm  # noqa: F401
+    import ompi_tpu.btl.tcp  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

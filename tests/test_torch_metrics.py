@@ -36,10 +36,10 @@ from tools.promexport import validate
 
 @pytest.fixture(autouse=True)
 def clean():
-    """Both registries reset around each test; the samplers the JAX
-    package's other modules bound (its tcp btl's, linkmodel's) are put
+    """Both registries reset around each test; the samplers the other
+    modules of both packages bound (their tcp btls', linkmodel's) are put
     back for the tests that run after these in this worker."""
-    jsamplers = dict(J._samplers)
+    jsamplers, tsamplers = dict(J._samplers), dict(T._samplers)
     for m in (T, J):
         m.reset_for_testing()
     yield
@@ -48,6 +48,7 @@ def clean():
         m.stop_http()
         m.reset_for_testing()
     J._samplers.update(jsamplers)
+    T._samplers.update(tsamplers)
 
 
 def both(fn):

@@ -79,7 +79,10 @@ def test_the_scan_sees_a_forbidden_import():
     "ompi_tpu_torch.ft", "ompi_tpu_torch.ft.inject",
     "ompi_tpu_torch.ft.detector", "ompi_tpu_torch.ft.revoke",
     "ompi_tpu_torch.runtime.metrics", "ompi_tpu_torch.runtime.linkmodel",
-    "ompi_tpu_torch.runtime.forensics", "ompi_tpu_torch.runtime.sanitizer"])
+    "ompi_tpu_torch.runtime.forensics", "ompi_tpu_torch.runtime.sanitizer",
+    "ompi_tpu_torch.native.ring", "ompi_tpu_torch.btl",
+    "ompi_tpu_torch.btl.base", "ompi_tpu_torch.btl.self_btl",
+    "ompi_tpu_torch.btl.sm", "ompi_tpu_torch.btl.tcp"])
 def test_modules_import_without_building(mod):
     importlib.import_module(mod)
     from ompi_tpu_torch.ops import _build

@@ -6,11 +6,22 @@ map (default, rewritten, malformed), the recovery planes, the
 per-communicator override with its derived planes and Dup inheritance,
 ``resolve`` and the pvars. Classes and the stamped counts are equal.
 
-Waiting for the btl (A.14.4) and ob1 (A.14.5): segmentation and
-reassembly, per-class sequence planes, the shaped tcp queues, the handshake,
-the round engine's plane, the Prometheus cell of the shape sampler and the
-two process-mode runs.
+With the tcp btl (A.14.4), the shaped send path on both packages (the
+``P`` fixture of ``tests/test_torch_btl_fixture.py``): a LATENCY frame
+preempting queued BULK, the starvation bound, the unpreemptible partial
+frame, the weighted-deficit ratio, a shape flip draining FIFO, gauges
+settled by a failed conn, and the handshake's QoS capability. Over the same
+fake socket the two packages put the same bytes on the wire.
+
+Waiting for ob1 (A.14.5): segmentation and reassembly, per-class sequence
+planes, the round engine's plane and the two process-mode runs; the
+Prometheus cell of the shape sampler waits for the tools (A.14.10).
 """
+
+import errno
+import socket
+import struct
+import time
 
 import pytest
 
@@ -24,6 +35,8 @@ from ompi_tpu_torch.comm import communicator as tcomm
 from ompi_tpu_torch.core.group import Group as TGroup
 from ompi_tpu_torch.mca import var as tvar
 from ompi_tpu_torch.pml import base as tbase
+from tests.test_torch_btl_fixture import (  # noqa: F401 fixtures
+    P, btl_clean, load)
 from tests.test_torch_mca_fixture import mca_watched  # noqa: F401 fixture
 
 NBC_CID_BIT = 1 << 28
@@ -200,3 +213,223 @@ def test_cvar_pvar_registration():
     for name in ("qos_stamped_normal", "qos_stamped_latency",
                  "qos_stamped_bulk", "qos_segments", "qos_reassembled"):
         assert name in tvar.all_pvars(), name
+
+
+# ------------------------------------------------- the shaped tcp path
+
+class _FakeSock:
+    """Accepts ``budget`` bytes per flush window, then EAGAIN."""
+
+    def __init__(self):
+        self.wire = bytearray()
+        self.budget = 0
+
+    def sendmsg(self, vecs):
+        take = min(self.budget, sum(len(v) for v in vecs))
+        if take == 0:
+            e = socket.error()
+            e.errno = errno.EAGAIN
+            raise e
+        left = take
+        for v in vecs:
+            nb = min(len(v), left)
+            self.wire += (bytes(v[:nb]) if isinstance(v, memoryview)
+                          else bytes(v)[:nb])
+            left -= nb
+            if left == 0:
+                break
+        self.budget -= take
+        return take
+
+    def close(self):
+        pass
+
+
+def _wire_classes(P, wire: bytes):
+    off = 0
+    order = []
+    while off < len(wire):
+        total = struct.unpack_from("<I", wire, off)[0] & ((1 << 31) - 1)
+        order.append(P.pml.Header(wire[off + 4:off + 4 + P.pml.HDR_SIZE]).qos)
+        off += 4 + total
+    return order
+
+
+def _shaped_pair(P):
+    btl = P.tcp.TcpBtl(lambda h, p: None, my_rank=0)
+    conn = P.tcp._Conn(_FakeSock(), peer=1)
+    conn.peer_q = True
+    btl.conns[1] = conn
+    btl.peers = {1: "x:0"}
+    return btl, conn
+
+
+def _frame(P, tag, seq, cls, payload):
+    return (P.pml.pack_header(P.pml.EAGER, 0, 0, tag, seq, len(payload), 0,
+                              0, qos=cls), payload)
+
+
+def _pv(P, name):
+    return P.var.all_pvars()[name].value
+
+
+def _latency_preempts(P):
+    P.set("btl_tcp", "shape_enable", 1)
+    btl, conn = _shaped_pair(P)
+    before = _pv(P, "btl_tcp_shape_preemptions")
+    for i in range(5):
+        btl.send(1, *_frame(P, 7, i + 1, P.qos.BULK, bytes(200)))
+    assert _pv(P, "btl_tcp_shape_queued_bulk") > 0
+    btl.send(1, *_frame(P, 8, 1, P.qos.LATENCY, b"URGENT"))
+    with conn.wlock:
+        conn.sock.budget = 10 ** 9
+        btl._flush_shaped(conn)
+    order = _wire_classes(P, bytes(conn.sock.wire))
+    assert order[0] == P.qos.LATENCY and order[1:] == [P.qos.BULK] * 5
+    assert _pv(P, "btl_tcp_shape_preemptions") > before
+    assert _pv(P, "btl_tcp_shape_queued_bulk") == 0
+    assert _pv(P, "btl_tcp_shape_queued_latency") == 0
+    assert _pv(P, "btl_tcp_shape_peak_queued_bulk") > 0
+    btl.finalize()
+    return bytes(conn.sock.wire)
+
+
+def test_latency_preempts_queued_bulk(P):
+    _latency_preempts(P)
+
+
+def test_the_shaped_wire_equals_the_references(btl_clean):
+    """The same sends through the same fake socket put the same bytes on
+    the wire in both packages."""
+    wires = []
+    for name, setter in (("jax", btl_clean.jax), ("torch", btl_clean.port)):
+        M = load(name)
+        M.set = setter
+        wires.append(_latency_preempts(M))
+    assert wires[0] == wires[1]
+
+
+def test_starvation_bound_serves_bulk(P):
+    P.set("btl_tcp", "shape_enable", 1)
+    P.set("btl_tcp", "shape_max_defer_bytes", 2048)
+    btl, conn = _shaped_pair(P)
+    btl.send(1, *_frame(P, 7, 100, P.qos.BULK, bytes(300)))
+    for i in range(40):
+        btl.send(1, *_frame(P, 8, 101 + i, P.qos.LATENCY, bytes(300)))
+    for _ in range(200):
+        with conn.wlock:
+            conn.sock.budget = max(conn.sock.budget, 400)
+            btl._flush_shaped(conn)
+            if conn.cur is None and not any(conn.wqs):
+                break
+    order = _wire_classes(P, bytes(conn.sock.wire))
+    bulk_pos = order.index(P.qos.BULK)
+    fsz = 4 + P.pml.HDR_SIZE + 300
+    assert 0 < bulk_pos < len(order) - 1
+    assert bulk_pos * fsz <= 2048 + 2 * fsz
+    btl.finalize()
+
+
+def test_partial_frame_finishes_before_preemption(P):
+    P.set("btl_tcp", "shape_enable", 1)
+    btl, conn = _shaped_pair(P)
+    conn.sock.budget = 100  # partial: frame is 4+49+300 bytes
+    btl.send(1, *_frame(P, 9, 1, P.qos.BULK, bytes(300)))
+    btl.send(1, *_frame(P, 9, 2, P.qos.LATENCY, bytes(10)))
+    for _ in range(50):
+        with conn.wlock:
+            conn.sock.budget = max(conn.sock.budget, 200)
+            btl._flush_shaped(conn)
+            if conn.cur is None and not any(conn.wqs):
+                break
+    assert _wire_classes(P, bytes(conn.sock.wire)) == \
+        [P.qos.BULK, P.qos.LATENCY]
+    btl.finalize()
+
+
+def test_weighted_deficit_ratio(P):
+    P.set("btl_tcp", "shape_enable", 1)
+    P.set("btl_tcp", "shape_weights", "4,2,1")
+    P.set("btl_tcp", "shape_quantum_bytes", 512)
+    P.set("btl_tcp", "shape_max_defer_bytes", 0)  # pure DRR
+    btl, conn = _shaped_pair(P)
+    for i in range(60):
+        btl.send(1, *_frame(P, 7, i + 1, P.qos.BULK, bytes(300)))
+    for i in range(60):
+        btl.send(1, *_frame(P, 8, i + 1, P.qos.LATENCY, bytes(300)))
+    with conn.wlock:
+        conn.sock.budget = 40 * (4 + P.pml.HDR_SIZE + 300)
+        btl._flush_shaped(conn)
+    order = _wire_classes(P, bytes(conn.sock.wire))
+    lat = sum(1 for c in order if c == P.qos.LATENCY)
+    bulk = sum(1 for c in order if c == P.qos.BULK)
+    assert bulk > 0, "pure DRR still serves the light class"
+    assert 2.0 <= lat / bulk <= 8.0, (lat, bulk)
+    btl.finalize()
+
+
+def test_shape_flip_residue_drains_fifo(P):
+    P.set("btl_tcp", "shape_enable", 1)
+    btl, conn = _shaped_pair(P)
+    for i in range(3):
+        btl.send(1, *_frame(P, 7, i + 1, P.qos.BULK, bytes(100)))
+    P.set("btl_tcp", "shape_enable", 0)
+    btl.send(1, *_frame(P, 7, 4, P.qos.NORMAL, bytes(100)))
+    with conn.wlock:
+        conn.sock.budget = 10 ** 9
+        btl._flush_locked(conn)
+    order = _wire_classes(P, bytes(conn.sock.wire))
+    assert len(order) == 4
+    assert order[:3] == [P.qos.BULK] * 3
+    assert _pv(P, "btl_tcp_shape_queued_bulk") == 0
+    btl.finalize()
+
+
+def test_conn_failure_settles_gauges(P):
+    P.set("btl_tcp", "shape_enable", 1)
+    btl, conn = _shaped_pair(P)
+    for i in range(4):
+        btl.send(1, *_frame(P, 7, i + 1, P.qos.BULK, bytes(500)))
+    assert _pv(P, "btl_tcp_shape_queued_bulk") > 0
+    btl._conn_failed(conn, OSError("boom"))
+    assert _pv(P, "btl_tcp_shape_queued_bulk") == 0
+    assert conn.cur is None
+    btl.finalize()
+
+
+def test_handshake_negotiates_qos_capability(P):
+    got = []
+    a = P.tcp.TcpBtl(lambda h, p: None, my_rank=0)
+    b = P.tcp.TcpBtl(lambda h, p: got.append((bytes(h), bytes(p))),
+                     my_rank=1)
+    a.set_peers({1: f"127.0.0.1:{b.port}"})
+    b.set_peers({0: f"127.0.0.1:{a.port}"})
+    try:
+        a.send(1, *_frame(P, 7, 1, P.qos.NORMAL, b"ping"))
+        deadline = time.time() + 10
+        while len(got) < 1 and time.time() < deadline:
+            a.progress()
+            b.progress()
+        assert got, "frame never delivered"
+        conn_a = a.conns[1]
+        while conn_a.await_ack and time.time() < deadline:
+            a.progress()
+            b.progress()
+        assert conn_a.peer_q and conn_a.peer_z
+        assert b.conns[0].peer_q
+    finally:
+        a.finalize()
+        b.finalize()
+
+
+def test_btl_shape_cvars_and_pvars_registered(P):
+    cvars = P.var.all_vars()
+    for name in ("btl_tcp_shape_enable", "btl_tcp_shape_segment_bytes",
+                 "btl_tcp_shape_quantum_bytes", "btl_tcp_shape_weights",
+                 "btl_tcp_shape_max_defer_bytes", "qos_tag_map"):
+        assert name in cvars, name
+    for name in ("btl_tcp_shape_queued_latency",
+                 "btl_tcp_shape_queued_normal", "btl_tcp_shape_queued_bulk",
+                 "btl_tcp_shape_preemptions", "btl_tcp_shape_enqueued"):
+        assert name in P.var.all_pvars(), name
+    assert "btl_tcp_shape_queued_bytes_by_class" in P.metrics._samplers

@@ -8,10 +8,11 @@ twice:
   multi-waits, raise-once errors, ``Grequest``, ``Prequest``) and
   ``test_info``;
 - ``tests/test_backoff.py``'s six cases;
-- the idle-block cases of ``tests/test_datapath.py``. They drive a tcp btl
-  pair, which the port does not have yet; here a socketpair stands in for
-  it: its progress function drains the read end and its idle source
-  exports that fd, and both packages run the same stand-in. The parked
+- the idle-block cases of ``tests/test_datapath.py``, twice: over the tcp
+  btl pair they drive in the reference (``tcp_idle_env``), and over a
+  socketpair stand-in whose progress function drains the read end and
+  whose idle source exports that fd, both packages on the same stand-in
+  (``idle_env``). The parked
   ``progress_until`` woken by a frame and by ``poke``, the timeout under a
   long cap, the poll-only cap, the disabled idle block, a
   ``ProgressThread`` that parks and stops fast, the exact low-priority
@@ -442,6 +443,103 @@ def test_debug_state_keys_agree():
     from ompi_tpu_torch.runtime import progress as T
 
     assert sorted(T._fx_debug_state()) == sorted(J._fx_debug_state())
+
+
+# --------------------------------------- idle blocking over a tcp pair
+@pytest.fixture
+def tcp_idle_env(P):
+    tcp = importlib.import_module(f"{PKGS[P.name]}.btl.tcp")
+    pml = importlib.import_module(f"{PKGS[P.name]}.pml.base")
+    got = []
+    a = tcp.TcpBtl(lambda h, p: got.append((bytes(h), bytes(p))), my_rank=0)
+    b = tcp.TcpBtl(lambda h, p: got.append((bytes(h), bytes(p))), my_rank=1)
+    a.set_peers({1: f"127.0.0.1:{b.port}"})
+    b.set_peers({0: f"127.0.0.1:{a.port}"})
+    P.progress.register_progress(a.progress)
+    P.progress.register_progress(b.progress)
+    P.progress.set_idle_sources([a.idle_fds, b.idle_fds])
+    try:
+        yield P, a, b, got, pml.pack_header(1, 0, 0, 5, 1, 5, 0, 0)
+    finally:
+        P.progress.unregister_progress(a.progress)
+        P.progress.unregister_progress(b.progress)
+        P.progress.set_idle_sources([])
+        a.finalize()
+        b.finalize()
+
+
+def test_tcp_frame_wakes_parked_progress_until(tcp_idle_env, mca):  # noqa: F811
+    P, a, b, got, hdr = tcp_idle_env
+    _set(mca, P, "runtime", "idle_block_us", 3_000_000)  # 3 s park cap
+    before = _blocks(P)
+    t = threading.Timer(0.4, lambda: a.send(1, hdr, b"wake"))
+    t.start()
+    t0 = time.monotonic()
+    ok = P.progress.progress_until(lambda: bool(got), timeout=10)
+    el = time.monotonic() - t0
+    t.join(timeout=5)
+    assert ok and got[0][1] == b"wake"
+    assert el < 1.5, f"woke in {el:.3f}s: parked past the frame"
+    assert _blocks(P) > before
+
+
+def test_tcp_progress_until_timeout_honored_under_long_cap(tcp_idle_env, mca):  # noqa: F811
+    P = tcp_idle_env[0]
+    _set(mca, P, "runtime", "idle_block_us", 3_000_000)
+    t0 = time.monotonic()
+    assert not P.progress.progress_until(lambda: False, timeout=0.3)
+    assert 0.25 < time.monotonic() - t0 < 1.5
+
+
+def test_tcp_poke_wakes_parked_wait(tcp_idle_env, mca):  # noqa: F811
+    P = tcp_idle_env[0]
+    _set(mca, P, "runtime", "idle_block_us", 3_000_000)
+    flag = []
+
+    def poker():
+        flag.append(1)
+        P.progress.poke()
+
+    t = threading.Timer(0.3, poker)
+    t.start()
+    t0 = time.monotonic()
+    assert P.progress.progress_until(lambda: bool(flag), timeout=10)
+    el = time.monotonic() - t0
+    t.join(timeout=5)
+    assert el < 1.2, el
+
+
+def test_tcp_poll_only_source_caps_the_park(tcp_idle_env, mca):  # noqa: F811
+    P, a = tcp_idle_env[:2]
+    P.progress.set_idle_sources([a.idle_fds, None])
+    _set(mca, P, "runtime", "idle_block_us", 3_000_000)
+    t0 = time.monotonic()
+    P.progress.progress_until(lambda: False, timeout=0.08)
+    assert time.monotonic() - t0 < 1.0
+
+
+def test_tcp_idle_block_disabled_restores_sleep_backoff(tcp_idle_env, mca):  # noqa: F811
+    P = tcp_idle_env[0]
+    _set(mca, P, "runtime", "idle_block_us", 0)
+    before = _blocks(P)
+    P.progress.progress_until(lambda: False, timeout=0.05)
+    assert _blocks(P) == before
+
+
+def test_tcp_progress_thread_parks_and_stops_fast(tcp_idle_env, mca):  # noqa: F811
+    P = tcp_idle_env[0]
+    _set(mca, P, "runtime", "idle_block_us", 3_000_000)
+    before = _blocks(P)
+    pt = P.progress.ProgressThread()
+    pt.start()
+    thread = pt._thread
+    time.sleep(0.6)  # the hot window drains, then it must park
+    t0 = time.monotonic()
+    pt.stop()
+    el = time.monotonic() - t0
+    assert el < 1.0, f"stop() took {el:.2f}s: the poke missed the park"
+    assert not thread.is_alive()
+    assert _blocks(P) > before
 
 
 # ------------------------------------------------------------ peruse
