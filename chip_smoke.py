@@ -208,7 +208,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ranks over ``self,sm`` with the failure detector armed, 4 over
    ``self,tcp`` (the plain stream) and a 3-rank sessions-only job (no
    Init: ``Session.Init``, ``Comm_create_from_group``, ``Session.Finalize``),
-   all under ``coll_coll=^sm,adapt,han,hier,quant``. Each rank makes
+   the sm and sessions jobs under ``coll_coll=^sm`` (their ranks share an
+   sm node, where coll/sm would take the slots tuned is timed on), the tcp
+   job at the default selection (sm, han and hier decline there). Each
+   rank makes
    integer-valued f32 and bf16 payloads of 64 MB and a 4 KB f32 on the
    card from a seeded generator (and every peer's); every send stages
    from the card, every receive lands in a ``DeviceBuffer``, each result
@@ -225,6 +228,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``Shrink`` and Allreduce from the card. The 64 MB Allreduce's host ms
    and the phase's seconds are printed with the card; one
    ``{"collstack": ...}`` line. A failing rank fails the phase;
+4o. the rest of the host collectives (``phase_hostcoll``): the port's
+   ``mpirun`` re-enters this script (``--child hostcoll_rank JOB``) for 4
+   ranks over ``self,sm`` at the default selection, and 3 over the plain
+   tcp stream with ``quant_enable`` (int8 codes, then fp8) and with it on
+   every rank but rank 1, all sharing the card. Each rank makes
+   integer-valued f32 and bf16 payloads of 4 KB and 64 MB on the card
+   from a seeded generator (and every peer's); every send stages from the
+   card, every receive lands in a ``DeviceBuffer``. On the sm job's world
+   coll/sm serves Barrier, Bcast, Allreduce (SUM and MAX, f32 and bf16),
+   Reduce, Allgather, Gather, Scatter and Alltoall, and hands an Alltoall
+   whose bytes do not divide to its flat module (off ``x86_64`` its
+   decline is required and the machine printed); rank 0 times a 64 MB
+   Allreduce 3 times through sm and through tuned; on a Dup under
+   ``coll_hier_fake_nodes=2`` hier composes Allreduce, Bcast, Allgather
+   and Reduce_scatter_block (its plan and stages printed); on a Dup under
+   ``coll_han_fake_nodes=2``, ``coll_hier_enable=0`` and
+   ``coll_adapt_enable=1`` han serves Allreduce and Barrier, adapt Bcast
+   and Reduce, and sm declines by its own rule. Exact results are held
+   against their closed form on the card bit for bit; the quantized
+   Allreduce, Allgather and Reduce_scatter_block within the codec's bound
+   of the exact sum on the card, with the quant counters grown as the
+   reference counts; in the fallback job every rank falls back together,
+   exact. Each call's component is printed; the 64 MB Allreduce's host ms
+   and the phase's seconds with the card; one ``{"hostcoll": ...}`` line.
+   A failing rank, or a call served by another component than the
+   selection should give, fails the phase;
 6. one JSON line describing every kernel, then the device JSON line last.
 
 Without a CUDA device, or outside a checkout, it exits non-zero before
@@ -3600,15 +3629,20 @@ def phase_procmode(card, device="cuda", scale=1, rank_prog=None):
 
 # ------------------------------------------------ phase 4n: the coll stack
 # the jobs of the default host collective stack on the card: (ranks, --mca
-# pairs, rank mode, btl). Both world jobs pin coll_coll as mixed jobs do
-# until A.14.6b; the sm job arms the failure detector for its Shrink
-CS_PIN = (("coll_coll", "^sm,adapt,han,hier,quant"),)
+# pairs, rank mode, btl). The sm job exists to time tuned against basic
+# (P.1), and its ranks share one sm node, where coll/sm (priority 50) would
+# take the Allreduce: it excludes sm alone; it also arms the failure
+# detector for its Shrink. The sessions job runs over the default btls, so
+# its ranks share an sm node card too: it excludes sm for the same reason.
+# The tcp job runs at the default selection: no rank has an sm node card,
+# so sm, han and hier decline
+CS_PIN = (("coll_coll", "^sm"),)
 CS_FT = (("ft_enable", "1"), ("ft_heartbeat_period", "0.25"),
          ("ft_heartbeat_timeout", "4.0"))
 CS_JOBS = ((4, (("btl_btl", "self,sm"),) + CS_PIN + CS_FT, "world",
             "SmBtl"),
-           (4, (("btl_btl", "self,tcp"), ("btl_tcp_reliable", "0"))
-            + CS_PIN, "world", "TcpBtl"),
+           (4, (("btl_btl", "self,tcp"), ("btl_tcp_reliable", "0")),
+            "world", "TcpBtl"),
            (3, CS_PIN, "sessions", None))
 CS_SEED = 1515
 CS_BYTES = 64 << 20       # the 64 MB calls: per-call payload a rank
@@ -4034,15 +4068,521 @@ def phase_collstack(card, device="cuda", scale=1, rank_prog=None):
     return jobs
 
 
+# ------------------------------------------- phase 4o: the host collectives
+# the jobs of the rest of the host collectives on the card: (name, ranks,
+# --mca pairs). The collectives job runs 4 ranks over self,sm at the
+# default selection, then the same verbs on a Dup under each of HC_SETS
+# (han, hier, sm and adapt read their variables when a comm is built, so
+# one job serves the three; a job start costs about 20 s on the GPU host).
+# The quant jobs run over the plain tcp stream (as 4m's and 4n's tcp jobs
+# do), once with int8 codes, once with fp8, and once with quant_enable on
+# every rank but rank 1 (set by the rank program before Init), where
+# every rank falls back together
+HC_SM = (("btl_btl", "self,sm"),)
+HC_TCP = (("btl_btl", "self,tcp"), ("btl_tcp_reliable", "0"))
+HC_QUANT = (("quant_enable", "1"), ("quant_min_bytes", "2048"))
+HC_JOBS = (("collectives", 4, HC_SM),
+           ("quant_int8", 3, HC_TCP + HC_QUANT),
+           ("quant_fp8", 3, HC_TCP + HC_QUANT + (("quant_mode", "fp8"),)),
+           ("quant_fallback", 3, HC_TCP))
+# the comms of the collectives job: the world, and a Dup under each setting
+HC_SETS = (("sm", ()),
+           ("hier", (("coll_hier", "fake_nodes", 2),)),
+           ("han", (("coll_han", "fake_nodes", 2),
+                    ("coll_hier", "enable", False),
+                    ("coll_adapt", "enable", True))))
+HC_SEED = 1616
+HC_BYTES = 64 << 20       # the 64 MB calls: per-call payload a rank
+HC_SMALL_BYTES = 4 << 10  # the 4 KB calls
+HC_TIMED = 3              # 64 MB Allreduces timed through sm and tuned
+HC_JOB_TIMEOUT_S = 150
+# the slots each comm's component must serve (sm on an x86_64 host only)
+HC_SERVES = {"sm": {"sm": ("barrier", "bcast", "allreduce", "reduce",
+                           "allgather", "gather", "scatter", "alltoall")},
+             "hier": {"hier": ("allreduce", "bcast", "allgather",
+                               "reduce_scatter_block")},
+             "han": {"han": ("allreduce", "barrier"),
+                     "adapt": ("bcast", "reduce")},
+             "quant_int8": {"quant": ("allreduce", "allgather",
+                                      "reduce_scatter_block")},
+             "quant_fp8": {"quant": ("allreduce", "allgather",
+                                     "reduce_scatter_block")},
+             "quant_fallback": {}}
+
+
+def hc_payloads(rank, n, device, scale=1):
+    """Rank ``rank``'s payloads in a job of ``n`` ranks, made on ``device``
+    from a seeded generator: integer-valued f32 and bf16 of 64 MB and 4 KB
+    (every sum and max below is exact); counts divide by ``n``."""
+    gen = torch.Generator(device=device).manual_seed(HC_SEED + rank)
+
+    def count(nbytes, size):
+        return max(n, nbytes // size // n * n)
+
+    out = {}
+    for tag, nbytes in (("64 MB", HC_BYTES // scale),
+                        ("4 KB", HC_SMALL_BYTES)):
+        out[f"f32 {tag}"] = torch.randint(
+            -1000, 1000, (count(nbytes, 4),), generator=gen,
+            device=device).to(torch.float32)
+        out[f"bf16 {tag}"] = torch.randint(
+            -8, 8, (count(nbytes, 2),), generator=gen,
+            device=device).to(torch.bfloat16)
+    return out
+
+
+class _HcRank:
+    """What one rank of phase 4o checks and records, comm by comm."""
+
+    def __init__(self, r, n, device, scale):
+        self.r, self.n, self.device = r, n, device
+        self.mine = hc_payloads(r, n, device, scale)
+        self.every = [self.mine if q == r else hc_payloads(q, n, device,
+                                                           scale)
+                      for q in range(n)]
+        self.checks = []
+        self.flat_calls = []
+
+    def check(self, got_db, want, what):
+        from ompi_tpu_torch.accelerator import DeviceBuffer
+
+        got = got_db.array if isinstance(got_db, DeviceBuffer) else got_db
+        require(got.device.type == torch.device(self.device).type,
+                f"hostcoll rank {self.r}: {what} lands on {self.device}")
+        require(got.dtype == want.dtype and got.shape == want.shape
+                and torch.equal(_bits(got), _bits(want)),
+                f"hostcoll rank {self.r}: {what} bit-exact on "
+                f"{self.device}")
+        self.checks.append(what)
+
+    def bounded(self, got, exact, bound, what):
+        """A quantized result within the codec's bound of the exact sum,
+        compared on the card."""
+        err = (got.to(torch.float64) - exact.to(torch.float64)).abs()
+        require(got.device.type == torch.device(self.device).type
+                and bool((err <= bound.to(got.device)).all()),
+                f"hostcoll rank {self.r}: {what} within the codec's bound "
+                f"on {self.device}")
+        self.checks.append(what + " within the bound")
+
+    def total(self, key, how="sum", q=None):
+        ts = [self.every[i][key] for i in (range(self.n) if q is None
+                                            else q)]
+        s = torch.stack([t.to(torch.float32) for t in ts])
+        return (s.sum(0) if how == "sum" else s.amax(0)).to(ts[0].dtype)
+
+    def block(self, q, key, part):
+        t = self.every[q][key]
+        per = t.numel() // self.n
+        return t[part * per:(part + 1) * per]
+
+    def call(self, C, served, verb, what, fn):
+        """Run ``fn`` on comm ``C`` and note the component that served it:
+        the slot's winner, or where a conditional winner sent it (quant's
+        delegation shows as no quantized collective counted; sm's whole
+        delegation of an indivisible Alltoall as a call of its flat
+        module)."""
+        from ompi_tpu_torch.mca.var import all_pvars
+
+        q0 = all_pvars()["quant_colls"].value
+        flat0 = len(self.flat_calls)
+        fn()
+        who = C.coll.providers[verb]
+        if who == "quant" and all_pvars()["quant_colls"].value == q0:
+            who = "quant->" + C.coll.fallback_providers[verb][0]
+        if len(self.flat_calls) > flat0:
+            who += "->basic"
+        served[what] = who
+
+
+def _hc_verbs(R, C, name, served, timings):
+    """The collectives job's verbs on comm ``C`` (the world at the default
+    selection, or a Dup under one of ``HC_SETS``)."""
+    from ompi_tpu_torch.accelerator import DeviceBuffer
+    from ompi_tpu_torch.coll import smcoll
+    from ompi_tpu_torch.core import op
+    from ompi_tpu_torch.mca.var import get_var, set_var
+
+    r, n, mine = R.r, R.n, R.mine
+
+    def db_like(t, numel=None):
+        return DeviceBuffer((t.numel() if numel is None else numel,),
+                            t.dtype)
+
+    sm_mod = getattr(C.coll.slots.get("alltoall"), "__self__", None)
+    if isinstance(sm_mod, smcoll.SmColl):
+        flat_a2a = sm_mod._flat.alltoall
+
+        def counted_a2a(*a, **kw):
+            R.flat_calls.append(1)
+            return flat_a2a(*a, **kw)
+
+        sm_mod._flat.alltoall = counted_a2a
+    for size in ("4 KB", "64 MB"):
+        for key in (f"f32 {size}", f"bf16 {size}"):
+            for opname, o in (("SUM", op.SUM), ("MAX", op.MAX)):
+                db = db_like(mine[key])
+                what = f"Allreduce {opname} {key}"
+                R.call(C, served, "allreduce", what,
+                       lambda: C.Allreduce(mine[key], db, op=o))
+                R.check(db, R.total(key, opname.lower()), what)
+    f32, bf16 = mine["f32 64 MB"], mine["bf16 64 MB"]
+    root = n - 1
+    db = DeviceBuffer(bf16) if r == root else db_like(bf16)
+    R.call(C, served, "bcast", "Bcast bf16 64 MB",
+           lambda: C.Bcast(db, root=root))
+    R.check(db, R.every[root]["bf16 64 MB"], "Bcast bf16 64 MB")
+    if name != "hier":
+        R.call(C, served, "barrier", "Barrier", C.Barrier)
+        db = db_like(f32)
+        R.call(C, served, "reduce", "Reduce SUM f32 64 MB",
+               lambda: C.Reduce(f32, db, op=op.SUM, root=0))
+        if r == 0:
+            R.check(db, R.total("f32 64 MB"), "Reduce SUM f32 64 MB")
+    if name != "han":
+        db = db_like(f32)
+        R.call(C, served, "allgather", "Allgather f32 64 MB",
+               lambda: C.Allgather(R.block(r, "f32 64 MB", r), db))
+        R.check(db, torch.cat([R.block(q, "f32 64 MB", q)
+                               for q in range(n)]), "Allgather f32 64 MB")
+    if name == "hier":
+        db = db_like(f32, f32.numel() // n)
+        R.call(C, served, "reduce_scatter_block",
+               "Reduce_scatter_block SUM f32 64 MB",
+               lambda: C.Reduce_scatter_block(f32, db, op=op.SUM))
+        R.check(db, R.total("f32 64 MB")[r * db.host.numel():
+                                         (r + 1) * db.host.numel()],
+                "Reduce_scatter_block SUM f32 64 MB")
+    if name != "sm":
+        return
+    db = db_like(bf16)
+    R.call(C, served, "gather", "Gather bf16 64 MB",
+           lambda: C.Gather(R.block(r, "bf16 64 MB", r), db, root=0))
+    if r == 0:
+        R.check(db, torch.cat([R.block(q, "bf16 64 MB", q)
+                               for q in range(n)]), "Gather bf16 64 MB")
+    db = db_like(bf16, bf16.numel() // n)
+    R.call(C, served, "scatter", "Scatter bf16 64 MB",
+           lambda: C.Scatter(bf16, db, root=0))
+    R.check(db, R.block(0, "bf16 64 MB", r), "Scatter bf16 64 MB")
+    db = db_like(f32)
+    R.call(C, served, "alltoall", "Alltoall f32 64 MB",
+           lambda: C.Alltoall(f32, db))
+    R.check(db, torch.cat([R.block(q, "f32 64 MB", r) for q in range(n)]),
+            "Alltoall f32 64 MB")
+    # 4 KB less n - 1 elements of bf16: the bytes for a destination do not
+    # divide, so sm hands the whole call to its flat module, whose blocks
+    # are the whole bytes of a destination (the tail is unset)
+    odd = mine["bf16 4 KB"][:mine["bf16 4 KB"].numel() - n + 1]
+    db = db_like(odd)
+    R.call(C, served, "alltoall", "Alltoall bf16 indivisible",
+           lambda: C.Alltoall(odd, db))
+    per = odd.numel() * 2 // n // 2
+    R.check(db.array[:n * per],
+            torch.cat([e["bf16 4 KB"][r * per:(r + 1) * per]
+                       for e in R.every]), "Alltoall bf16 indivisible")
+    if C.coll.providers["allreduce"] != "sm":
+        return  # sm declined: nothing of it to time
+    # host ms of a 64 MB Allreduce through sm, and through tuned on a Dup
+    # that excludes sm, on the same job
+    pin = get_var("coll", "coll")
+    set_var("coll", "coll", "^sm")
+    tw = C.Dup()
+    set_var("coll", "coll", pin)
+    require(tw.coll.providers["allreduce"] == "tuned",
+            "hostcoll: the Dup without sm selects tuned")
+    for label, comm in (("sm", C), ("tuned", tw)):
+        db = db_like(f32)
+        ms = []
+        for _ in range(HC_TIMED):
+            comm.Barrier()
+            _pm_sync(R.device)
+            t0 = time.perf_counter()
+            comm.Allreduce(f32, db, op=op.SUM)
+            db.array
+            _pm_sync(R.device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        R.check(db, R.total("f32 64 MB"), f"timed Allreduce SUM f32 ({label})")
+        timings[f"allreduce_64mb_host_ms_{label}"] = ms
+    tw.Free()
+
+
+def _hc_quant(R, W, job, served):
+    """A quant job's verbs: f32 SUM Allreduce at 4 KB and 64 MB, Allgather
+    and Reduce_scatter_block at 64 MB (quantized where the verdict is
+    active: within the codec's bound of the exact sum on the card, the
+    counters grown by what the reference counts; exact otherwise), and a
+    bf16 Allreduce, which is not quant-eligible and goes down the slot's
+    chain, exact."""
+    from ompi_tpu_torch.accelerator import DeviceBuffer
+    from ompi_tpu_torch.core import op
+    from ompi_tpu_torch.mca.var import all_pvars
+    from ompi_tpu_torch.quant.codec import chunk_layout, make_codec
+
+    r, n, mine = R.r, R.n, R.mine
+    st = getattr(W, "_quant_state", None)
+    active = st is not None and st.active
+    codec = make_codec("fp8" if job == "quant_fp8" else "int8", 8, 64)
+
+    def bound(blocks):
+        return torch.from_numpy(codec.error_bound(
+            torch.stack(blocks).cpu().numpy()))
+
+    def db_like(t, numel=None):
+        return DeviceBuffer((t.numel() if numel is None else numel,),
+                            t.dtype)
+
+    for size in ("4 KB", "64 MB"):
+        key = f"f32 {size}"
+        db = db_like(mine[key])
+        pv = all_pvars()
+        c0, w0 = pv["quant_colls"].value, pv["quant_bytes_wire"].value
+        R.call(W, served, "allreduce", f"Allreduce SUM {key}",
+               lambda: W.Allreduce(mine[key], db, op=op.SUM))
+        exact = R.total(key)
+        if not active:
+            R.check(db, exact, f"Allreduce SUM {key}")
+            continue
+        per, _ = chunk_layout(mine[key].numel(), n, codec.block)
+        pv = all_pvars()
+        require(pv["quant_colls"].value == c0 + 1
+                and pv["quant_bytes_wire"].value
+                == w0 + 2 * (n - 1) * codec.wire_nbytes(per),
+                f"hostcoll rank {r}: the {key} Allreduce counted as the "
+                "reference counts it")
+        R.bounded(db.array, exact,
+                  bound([e[key] for e in R.every]), f"Allreduce SUM {key}")
+    db = db_like(mine["bf16 64 MB"])
+    R.call(W, served, "allreduce", "Allreduce SUM bf16 64 MB",
+           lambda: W.Allreduce(mine["bf16 64 MB"], db, op=op.SUM))
+    R.check(db, R.total("bf16 64 MB"), "Allreduce SUM bf16 64 MB")
+    f32 = mine["f32 64 MB"]
+    ag = db_like(f32)
+    R.call(W, served, "allgather", "Allgather f32 64 MB",
+           lambda: W.Allgather(R.block(r, "f32 64 MB", r), ag))
+    rs = db_like(f32, f32.numel() // n)
+    R.call(W, served, "reduce_scatter_block",
+           "Reduce_scatter_block SUM f32 64 MB",
+           lambda: W.Reduce_scatter_block(f32, rs, op=op.SUM))
+    gathered = [R.block(q, "f32 64 MB", q) for q in range(n)]
+    mine_parts = [R.block(q, "f32 64 MB", r) for q in range(n)]
+    exact = torch.stack([p.to(torch.float32) for p in mine_parts]).sum(0)
+    if not active:
+        R.check(ag, torch.cat(gathered), "Allgather f32 64 MB")
+        R.check(rs, exact, "Reduce_scatter_block SUM f32 64 MB")
+        return
+    # each sender's block is one encoded vector (a round trip); each block
+    # of the reduce-scatter one vector a sender, summed with the f32
+    # accumulation slack of the allreduce bound
+    R.bounded(ag.array, torch.cat(gathered),
+              torch.cat([torch.from_numpy(codec.error_bound(b.cpu().numpy()))
+                         for b in gathered]), "Allgather f32 64 MB")
+    brs = sum(torch.from_numpy(codec.error_bound(b.cpu().numpy()))
+              for b in mine_parts)
+    brs = brs.to(R.device) + exact.to(torch.float64).abs() * 4 * (n + 2) \
+        * float(np.finfo(np.float32).eps)
+    R.bounded(rs.array, exact, brs, "Reduce_scatter_block SUM f32 64 MB")
+
+
+def hostcoll_rank(device="cuda", scale=1) -> int:
+    """One rank of phase 4o (``chip_smoke.py --child hostcoll_rank JOB``
+    under the port's ``mpirun``). Prints one ``HC-RANK {json}`` line: for
+    each comm, the component that served each call, its providers and
+    fallbacks and hier's plan; the checks; on rank 0 the timed
+    Allreduces."""
+    import platform
+
+    from ompi_tpu_torch.mca.var import all_pvars, get_var, set_var
+
+    t_start = time.perf_counter()
+    job = sys.argv[-1]
+    if job == "quant_fallback" and os.environ.get("OMPI_TPU_RANK") != "1":
+        # every rank but rank 1 asks for the quantized path: its modex card
+        # says no, so every rank falls back together
+        for name, value in HC_QUANT:
+            set_var("quant", name[len("quant_"):], value)
+
+    import ompi_tpu_torch as M
+    from ompi_tpu_torch.coll.hier import compose, decide
+
+    W = M.COMM_WORLD
+    R = _HcRank(W.Get_rank(), W.Get_size(), device, scale)
+    stages = set()  # hier's stages, as they ran
+    run = compose._Stager.run
+
+    def staged(self, name, thunk):
+        stages.add(f"{self.verb}.{name}")
+        return run(self, name, thunk)
+
+    compose._Stager.run = staged
+    comms, timings = {}, {}
+    q0 = all_pvars()["quant_colls"].value, \
+        all_pvars()["quant_bytes_wire"].value
+    for name, sets in (HC_SETS if job == "collectives" else ((job, ()),)):
+        saved = [(fw, v, get_var(fw, v)) for fw, v, _ in sets]
+        for fw, v, value in sets:
+            set_var(fw, v, value)
+        C = W.Dup() if sets else W
+        served = {}
+        if job == "collectives":
+            _hc_verbs(R, C, name, served, timings)
+        else:
+            _hc_quant(R, C, job, served)
+        comms[name] = {
+            "served": served, "providers": dict(C.coll.providers),
+            "fallbacks": {k: list(v)
+                          for k, v in C.coll.fallback_providers.items()},
+            "plans": {v: decide.state_for(C, v).active
+                      for v in HC_SERVES["hier"]["hier"]}
+            if name == "hier" else {}}
+        if C is not W:
+            C.Free()
+        for fw, v, value in saved:
+            set_var(fw, v, value)
+    W.Barrier()
+    line = {"rank": R.r, "size": R.n, "job": job,
+            "machine": platform.machine(),
+            "tso": platform.machine() in ("x86_64", "AMD64"),
+            "checks": len(R.checks), "comms": comms,
+            "stages": sorted(stages),
+            "quant_colls": all_pvars()["quant_colls"].value - q0[0],
+            "quant_bytes_wire": all_pvars()["quant_bytes_wire"].value
+            - q0[1],
+            "device": str(R.mine["f32 64 MB"].device),
+            "seconds": round(time.perf_counter() - t_start, 2),
+            **({"timings": timings} if R.r == 0 else {})}
+    print("HC-RANK " + json.dumps(line), flush=True)
+    M.Finalize()
+    return 0
+
+
+def _hc_require_served(job, name, c, r0):
+    """Each comm's calls went to the component the selection should give:
+    sm's slots on an x86_64 host (its decline elsewhere, with the machine
+    printed), hier's composition, han and adapt with sm declining, the
+    quantized slots and their fallback."""
+    prov, served = c["providers"], c["served"]
+    serves = HC_SERVES[name]
+    if name == "sm" and not r0["tso"]:
+        require("sm" not in prov.values(),
+                f"hostcoll: sm declines on {r0['machine']}")
+        print(f"phase 4o: sm declines on {r0['machine']} (no total store "
+              "order); its slots fall to the next component", flush=True)
+        serves = {}
+    for comp, verbs in serves.items():
+        for verb in verbs:
+            require(prov[verb] == comp,
+                    f"hostcoll: {comp} serves {verb} on the {name} comm "
+                    f"({prov[verb]})")
+    if name == "sm" and r0["tso"]:
+        require(served["Alltoall bf16 indivisible"] == "sm->basic",
+                "hostcoll: sm hands an indivisible Alltoall to its flat "
+                "module")
+    if name == "hier":
+        require(set(c["plans"].values()) == {"hier"} and r0["stages"],
+                "hostcoll: hier composes each verb")
+    if name == "han":
+        require("sm" not in prov.values()
+                and all("sm" not in v for v in c["fallbacks"].values()),
+                "hostcoll: sm declines under coll_han_fake_nodes")
+    if job.startswith("quant"):
+        want = 0 if job == "quant_fallback" else 4
+        require(r0["quant_colls"] == want,
+                f"hostcoll: {want} quantized collectives in the {job} job")
+        if want == 0:
+            require(prov["allreduce"] != "quant",
+                    "hostcoll: every rank fell back together")
+        else:
+            require(served["Allreduce SUM bf16 64 MB"].startswith("quant->"),
+                    "hostcoll: bf16 goes down the slot's chain")
+
+
+def phase_hostcoll(card, device="cuda", scale=1, rank_prog=None):
+    """Phase 4o: the rest of the host collectives on the card. The port's
+    ``mpirun`` launches ``chip_smoke.py --child hostcoll_rank JOB`` (or
+    ``rank_prog``) for each job of ``HC_JOBS``, all sharing the card; a
+    rank that fails fails the phase, and so does a call served by another
+    component than the selection should give. Prints the component of
+    each call, hier's plan, the 64 MB Allreduce's host ms through sm and
+    through tuned and the phase's seconds, each with the card, and one
+    ``{"hostcoll": ...}`` line."""
+    t0 = time.perf_counter()
+    prog = rank_prog or [os.path.abspath(__file__), "--child",
+                         "hostcoll_rank"]
+    env = dict(os.environ)
+    env.pop("OMPI_TPU_RANK", None)
+    if device == "cpu":  # a rehearsal keeps DeviceBuffers on the host
+        env["OMPI_TPU_MCA_accelerator_accelerator"] = "null"
+    jobs = []
+    for job, n, mca in HC_JOBS:
+        cmd = [sys.executable, "-m", "ompi_tpu_torch.tools.mpirun", "-np",
+               str(n), "--timeout", str(HC_JOB_TIMEOUT_S)]
+        for k, v in mca:
+            cmd += ["--mca", k, v]
+        tj = time.perf_counter()
+        p = subprocess.run(cmd + prog + [job], capture_output=True,
+                           text=True, timeout=HC_JOB_TIMEOUT_S + 30, env=env,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        dec = json.JSONDecoder()
+        ranks = [dec.raw_decode(p.stdout, m.end())[0]
+                 for m in re.finditer("HC-RANK ", p.stdout)]
+        if p.returncode != 0 or len(ranks) != n:
+            print(p.stdout[-4000:], p.stderr[-8000:], file=sys.stderr)
+        require(p.returncode == 0, f"hostcoll: the {n}-rank {job} job "
+                                   f"exits 0 (rc {p.returncode})")
+        require(sorted(x["rank"] for x in ranks) == list(range(n)),
+                f"hostcoll: every rank of the {job} job reports")
+        require(all(x["device"].startswith(device) for x in ranks),
+                f"hostcoll: every rank of the {job} job ran on {device}")
+        r0 = next(x for x in ranks if x["rank"] == 0)
+        require(all(x["comms"] == r0["comms"] for x in ranks),
+                f"hostcoll: the ranks of the {job} job select alike")
+        for name, c in r0["comms"].items():
+            _hc_require_served(job, name, c, r0)
+            label = job if name == job else f"{job}, {name}"
+            for what, who in c["served"].items():
+                print(f"phase 4o: {n} ranks, {label}: {what} -> {who}",
+                      flush=True)
+        if "hier" in r0["comms"]:
+            print(f"phase 4o: hier's plan: {r0['comms']['hier']['plans']}, "
+                  f"stages {', '.join(r0['stages'])}", flush=True)
+        jobs.append({"job": job, "ranks": n,
+                     "mca": ",".join(f"{k}={v}" for k, v in mca),
+                     "machine": r0["machine"], "comms": r0["comms"],
+                     "stages": r0["stages"],
+                     "checks": sum(x["checks"] for x in ranks),
+                     "quant_colls": r0["quant_colls"],
+                     "quant_bytes_wire": r0["quant_bytes_wire"],
+                     "wall_s": round(time.perf_counter() - tj, 1),
+                     "rank_s": max(x["seconds"] for x in ranks),
+                     **r0.get("timings", {})})
+    secs = time.perf_counter() - t0
+    for j in jobs:
+        if "allreduce_64mb_host_ms_sm" in j:
+            print(f"phase 4o: 64 MB Allreduce host ms ({HC_TIMED} calls), "
+                  f"{j['ranks']} ranks over self,sm: sm "
+                  f"{j['allreduce_64mb_host_ms_sm']}, tuned "
+                  f"{j['allreduce_64mb_host_ms_tuned']} on {card}",
+                  flush=True)
+    print(json.dumps({"hostcoll": {"card": card, "scale": scale,
+                                   "jobs": jobs,
+                                   "phase_s": round(secs, 1)}}), flush=True)
+    print(f"phase 4o: {len(jobs)} jobs, "
+          f"{sum(j['checks'] for j in jobs)} checks on the card; "
+          f"{secs:.1f} s on {card}", flush=True)
+    return jobs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the flagship forward's and training "
                          "step's kernels")
     ap.add_argument("--child", choices=sorted(OBS_CHILDREN)
-                    + ["bind_rank", "procmode_rank", "coll_rank"],
-                    help=argparse.SUPPRESS)  # 4i's, 4k's, 4m's, 4n's children
-    ap.add_argument("mode", nargs="?", help=argparse.SUPPRESS)  # 4n's
+                    + ["bind_rank", "procmode_rank", "coll_rank",
+                       "hostcoll_rank"],
+                    help=argparse.SUPPRESS)  # 4i's, 4k's, 4m's to 4o's
+    ap.add_argument("mode", nargs="?", help=argparse.SUPPRESS)  # 4n's, 4o's
     args = ap.parse_args()
     if args.child == "bind_rank":  # 4k's child reads the host, not the card
         return bind_child()
@@ -4053,6 +4593,8 @@ def main() -> int:
         return procmode_rank()
     if args.child == "coll_rank":  # 4n's ranks, under the port's mpirun
         return coll_rank()
+    if args.child == "hostcoll_rank":  # 4o's ranks, under the port's mpirun
+        return hostcoll_rank()
     if args.child:
         return obs_child(args.child)
     from ompi_tpu_torch import entry as entry_mod
@@ -4104,6 +4646,7 @@ def main() -> int:
     phase_btl(card)
     phase_procmode(card)
     phase_collstack(card)
+    phase_hostcoll(card)
 
     # 5. where the time goes
     if args.profile:

@@ -55,6 +55,26 @@ class CollTable:
                 "communicator")
         return fn
 
+    def next_after(self, op: str, name: str):
+        """The method of the module ranked right below component ``name``
+        in this slot's chain: where a conditional component (quant, hier)
+        sends a call it declines. A caller not in the chain (the winner)
+        gets the first fallback. ``KeyError`` when nothing ranks below the
+        caller (coll/basic provides every op, so that is a broken
+        invariant)."""
+        names = self.fallback_providers.get(op, [])
+        fns = self.fallbacks.get(op, [])
+        if name in names:
+            # one module per component in a slot, so the next entry is it
+            i = names.index(name) + 1
+            if i < len(fns):
+                return fns[i]
+            raise KeyError(
+                f"no module ranks below '{name}' for slot '{op}'")
+        if not fns:
+            raise KeyError(f"no fallback chain recorded for slot '{op}'")
+        return fns[0]
+
 
 def select_coll(comm) -> CollTable:
     """The comm's table: the highest-priority module wins each slot."""

@@ -507,6 +507,18 @@ class BasicColl(CollModule):
             cv_unpack(prefix, robj, rcount, rdt)
 
 
+_flat_singleton: Optional[BasicColl] = None
+
+
+def flat_module() -> BasicColl:
+    """The one shared, stateless ``BasicColl``: where han, hier and
+    hier's decision engine send re-entrant or agreement traffic."""
+    global _flat_singleton
+    if _flat_singleton is None:
+        _flat_singleton = BasicColl()
+    return _flat_singleton
+
+
 class BasicCollComponent(Component):
     NAME = "basic"
     PRIORITY = 10  # fallback (reference: coll/basic priority 10)

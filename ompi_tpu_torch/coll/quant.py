@@ -1,28 +1,46 @@
-"""coll/quant — the block-scaled quantized allreduce of mesh mode.
+"""coll/quant — block-scaled quantized collectives.
 
-The port of ``ompi_tpu/coll/xla.py:692-800`` (``quant_allreduce_body``) and
-``ompi_tpu/coll/quant.py:252-331`` (``QuantXlaColl``). There the body is
-one traced XLA program: quantize each rank's per-destination chunks,
-``all_to_all`` the int8/fp8 codes and f32 block scales, dequantize and
-reduce, requantize the reduced chunk, ``all_gather`` it and dequantize.
-Here it is tensor ops over the rank dim, the way ``coll/mesh.py`` maps the
-XLA collectives:
+The port of ``ompi_tpu/coll/quant.py`` (direction: EQuARX, arxiv
+2506.17615), packaged as a coll component so that the per-communicator
+selection picks it per message class. Selection reads the *negotiated*
+verdict of the communicator (quant/negotiate.py), never the local setting:
+a rank launched without ``quant_enable`` de-selects the module on every
+rank, and under ``quant_strict`` a mismatch keeps it selected in an
+error-armed state that raises the same MPIError on every rank.
 
-- the ``all_to_all`` of the codes and scales is the transpose of the
-  rows of ``[W (source), W (chunk), per]``;
-- the ``all_gather`` gives every rank the same reduced chunks, so the
-  dequantized result is computed once and stacked on every row.
+Two modules:
 
-Codes are computed in f32 and cast to int8 or float8_e4m3fn once (both
-round half to even), and read back through f32. Non-finite blocks travel
-as the codec's sentinels: the block's scale is +inf and the codes are
-{+inf, -inf, nan} code points (fp8: +-448 and nan; int8: 127, -127,
--128), so +-inf and nan arrive in place.
+- :class:`QuantProcColl` (process mode, ``:68-251``) — quantize -> flat
+  reduce-scatter exchange -> requantize -> allgather over the round
+  engine (coll/sched.py) in the collective CID plane, tag ``TAG_QUANT``,
+  with the reference's host codec (``quant/codec.py``), so that ranks of
+  the two packages exchange the same codes. Accumulation is in ascending
+  rank order, so results are bitwise-deterministic and equal to
+  ``codec.simulate_allreduce``. Ineligible calls (integer/pair dtypes,
+  non-SUM ops, payloads under the negotiated ``quant_min_bytes``) go to
+  the module ranked below quant in the slot's chain
+  (``CollTable.next_after``).
+- :class:`QuantMeshColl` (mesh mode; ``ompi_tpu/coll/xla.py:692-800``
+  ``quant_allreduce_body`` and ``ompi_tpu/coll/quant.py:252-331``
+  ``QuantXlaColl``). There the body is one traced XLA program: quantize
+  each rank's per-destination chunks, ``all_to_all`` the int8/fp8 codes
+  and f32 block scales, dequantize and reduce, requantize the reduced
+  chunk, ``all_gather`` it and dequantize. Here it is tensor ops over the
+  rank dim, the way ``coll/mesh.py`` maps the XLA collectives: the
+  ``all_to_all`` is the transpose of the rows of ``[W (source), W
+  (chunk), per]``, and the ``all_gather`` gives every rank the same
+  reduced chunks, so the result is computed once and stacked on every
+  row.
 
-Eligibility is checked on every call, on the terms of the JAX body
-(``:776-779``): a world comm of at least two ranks, the SUM op, a floating
-dtype (bf16 included) and a payload of at least ``min_bytes`` a rank.
-Anything else takes the plain allreduce body, uncounted. The callable is cached under
+On the mesh path codes are computed in f32 and cast to int8 or
+float8_e4m3fn once (both round half to even), and read back through f32.
+Non-finite blocks travel as the codec's sentinels: the block's scale is
++inf and the codes are {+inf, -inf, nan} code points (fp8: +-448 and nan;
+int8: 127, -127, -128), so +-inf and nan arrive in place. Eligibility is
+checked on every call, on the terms of the JAX body (``:776-779``): a
+world comm of at least two ranks, the SUM op, a floating dtype (bf16
+included) and a payload of at least ``min_bytes`` a rank; anything else
+takes the plain allreduce body, uncounted. The callable is cached under
 ``cache_key("allreduce", op, extra=("quant",))``, never under the plain
 allreduce's key: ``MeshColl.reduce`` shares the plain one, so a shared key
 would make the result depend on the order of the calls.
@@ -30,18 +48,30 @@ would make the result depend on the order of the calls.
 
 from __future__ import annotations
 
+from typing import List, Optional
+
 import numpy as np
 import torch
 
 from ompi_tpu_torch import quant as _quant
 from ompi_tpu_torch.coll import mesh as _mesh
 from ompi_tpu_torch.coll.base import CollModule, coll_framework
+from ompi_tpu_torch.coll.basic import COLL_CID_BIT
 from ompi_tpu_torch.coll.mesh import _check_device_op, _stack, cache_key
+from ompi_tpu_torch.coll.sched import Round, run_blocking
+from ompi_tpu_torch.comm.communicator import parse_buffer
 from ompi_tpu_torch.core import op as _op
+from ompi_tpu_torch.core.convertor import pack as cv_pack, unpack as cv_unpack
+from ompi_tpu_torch.core.errors import MPIError, ERR_UNSUPPORTED_OPERATION
 from ompi_tpu_torch.mca.component import Component
 from ompi_tpu_torch.runtime import trace as _trace
 from ompi_tpu_torch.quant import negotiate as _negotiate
-from ompi_tpu_torch.quant.codec import chunk_layout
+from ompi_tpu_torch.quant.codec import _work_dtype, chunk_layout
+
+TAG_QUANT = -35  # dedicated tag inside the collective CID plane
+
+_QUANT_DTYPES = (np.dtype(np.float16), np.dtype(np.float32),
+                 np.dtype(np.float64))
 
 _INF = float("inf")
 _NAN = float("nan")
@@ -52,6 +82,190 @@ def _eligible(comm, op: _op.Op, b: torch.Tensor, min_bytes: int) -> bool:
             and op.kind == "sum"
             and b.is_floating_point()
             and b[0].numel() * b.element_size() >= min_bytes)
+
+
+class QuantProcColl(CollModule):
+    """Quantized allreduce / reduce_scatter_block / allgather for
+    process-mode communicators; everything ineligible delegates."""
+
+    def _delegate(self, comm, op_name: str):
+        """Ineligible calls run on the module that would own this slot
+        had quant not been selected (the CollTable fallback CHAIN —
+        smcoll/han/hier/adaptive outrank tuned, so hard-wiring tuned
+        here would silently downgrade every non-quantized collective on
+        a quant-negotiated communicator). next_after walks the full
+        priority-ordered chain: with hier also contesting the slot the
+        runner-up is itself conditional, and it must delegate onward
+        from ITS position instead of bouncing back here. coll/basic
+        provides every op, so the chain is never empty for a slot quant
+        won."""
+        return comm.coll.next_after(op_name, "quant")
+
+    # ------------------------------------------------------- eligibility
+    @staticmethod
+    def _eligible(st, dt, nbytes: int, op: Optional[_op.Op]) -> bool:
+        if dt.np_dtype is None or dt.np_dtype not in _QUANT_DTYPES:
+            return False
+        if nbytes < st.min_bytes:
+            return False
+        if op is not None and not (op.name == "MPI_SUM" and op.commutative):
+            return False
+        return True
+
+    @staticmethod
+    def _check_armed(comm, st) -> None:
+        if not st.active:
+            # strict-armed negotiation failure: the SAME verdict (and
+            # the same call-site eligibility) on every rank makes this
+            # raise symmetric — a clean error instead of a torn hang
+            raise MPIError(
+                ERR_UNSUPPORTED_OPERATION,
+                f"quantized collectives requested on '{comm.name}' but "
+                f"negotiation failed under quant_strict: {st.reason}")
+
+    def _run(self, comm, gen, span: str) -> None:
+        if _trace.enabled():
+            with _trace.span(span, cat="coll", comm=comm.name):
+                run_blocking(comm, gen, TAG_QUANT,
+                             comm.cid | COLL_CID_BIT)
+        else:
+            run_blocking(comm, gen, TAG_QUANT, comm.cid | COLL_CID_BIT)
+
+    # --------------------------------------------------------- allreduce
+    def allreduce(self, comm, sendbuf, recvbuf, op: _op.Op) -> None:
+        st = comm._quant_state
+        robj, rcount, rdt = parse_buffer(recvbuf)
+        if not self._eligible(st, rdt, rcount * rdt.size, op):
+            return self._delegate(comm, "allreduce")(
+                comm, sendbuf, recvbuf, op)
+        self._check_armed(comm, st)
+        src = recvbuf if sendbuf is None else sendbuf  # IN_PLACE
+        sobj, scount, sdt = parse_buffer(src)
+        x = np.ascontiguousarray(
+            cv_pack(sobj, scount, sdt)).view(sdt.np_dtype)
+        n, r = comm.size, comm.rank
+        codec = st.codec
+        wdt = _work_dtype(rdt.np_dtype)
+        per, padded = chunk_layout(rcount, n, codec.block)
+        buf = np.zeros(padded, dtype=wdt)
+        buf[:rcount] = x
+        chunks = buf.reshape(n, per)
+        wire = codec.wire_nbytes(per)
+        enc_own = [codec.encode(chunks[j]) for j in range(n)]
+        peers = [j for j in range(n) if j != r]
+        pidx = {p: k for k, p in enumerate(peers)}  # O(1) recv lookup
+        out: List[Optional[np.ndarray]] = [None]
+
+        def sched():
+            got = yield Round(
+                sends=[(enc_own[j], j) for j in peers],
+                recvs=[(wire, j) for j in peers])
+            # reduce chunk r: every contribution quantized (own included,
+            # so all ranks dequantize identical values), ascending rank
+            # order — the codec.simulate_allreduce contract, bitwise
+            enc = [enc_own[r] if i == r else got[pidx[i]]
+                   for i in range(n)]
+            red = codec.reduce_encoded(enc, per, wdt)
+            enc_red = codec.encode(red)
+            got2 = yield Round(
+                sends=[(enc_red, j) for j in peers],
+                recvs=[(wire, j) for j in peers])
+            res = np.empty(padded, dtype=wdt)
+            for i in range(n):
+                payload = enc_red if i == r else got2[pidx[i]]
+                res[i * per:(i + 1) * per] = codec.decode(payload, per,
+                                                          wdt)
+            out[0] = res
+
+        self._run(comm, sched(), "coll.quant.allreduce")
+        # raw baseline = what a full-precision schedule would move:
+        # UNPADDED ceil(rcount/n) per chunk (counting the block padding
+        # would inflate quant_bytes_saved)
+        raw = 2 * len(peers) * (-(-rcount // n)) * rdt.size
+        _quant.note_coll("allreduce", raw, 2 * len(peers) * wire)
+        res = out[0][:rcount].astype(rdt.np_dtype)
+        cv_unpack(np.ascontiguousarray(res).view(np.uint8),
+                  robj, rcount, rdt)
+
+    # ------------------------------------------------ reduce_scatter_block
+    def reduce_scatter_block(self, comm, sendbuf, recvbuf,
+                             op: _op.Op) -> None:
+        st = comm._quant_state
+        robj, rcount, rdt = parse_buffer(recvbuf)
+        n, r = comm.size, comm.rank
+        if sendbuf is None or not self._eligible(
+                st, rdt, n * rcount * rdt.size, op):
+            return self._delegate(comm, "reduce_scatter_block")(
+                comm, sendbuf, recvbuf, op)
+        self._check_armed(comm, st)
+        sobj, scount, sdt = parse_buffer(sendbuf)
+        x = np.ascontiguousarray(
+            cv_pack(sobj, scount, sdt)).view(sdt.np_dtype)
+        codec = st.codec
+        wdt = _work_dtype(rdt.np_dtype)
+        wire = codec.wire_nbytes(rcount)
+        enc_own = [codec.encode(
+            x[j * rcount:(j + 1) * rcount].astype(wdt, copy=False))
+            for j in range(n)]
+        peers = [j for j in range(n) if j != r]
+        pidx = {p: k for k, p in enumerate(peers)}
+        out: List[Optional[np.ndarray]] = [None]
+
+        def sched():
+            got = yield Round(
+                sends=[(enc_own[j], j) for j in peers],
+                recvs=[(wire, j) for j in peers])
+            enc = [enc_own[r] if i == r else got[pidx[i]]
+                   for i in range(n)]
+            out[0] = codec.reduce_encoded(enc, rcount, wdt)
+
+        self._run(comm, sched(), "coll.quant.reduce_scatter")
+        _quant.note_coll("reduce_scatter_block",
+                         len(peers) * rcount * rdt.size, len(peers) * wire)
+        res = out[0][:rcount].astype(rdt.np_dtype)
+        cv_unpack(np.ascontiguousarray(res).view(np.uint8),
+                  robj, rcount, rdt)
+
+    # --------------------------------------------------------- allgather
+    def allgather(self, comm, sendbuf, recvbuf) -> None:
+        st = comm._quant_state
+        robj, rcount, rdt = parse_buffer(recvbuf)
+        # gate on THIS rank's contribution (rcount is the total recv
+        # surface, world x that) — the min_bytes cvar reasons about the
+        # per-message wire cost, same as allreduce's per-rank payload
+        if sendbuf is None or not self._eligible(
+                st, rdt, rcount * rdt.size // comm.size, None):
+            return self._delegate(comm, "allgather")(
+                comm, sendbuf, recvbuf)
+        self._check_armed(comm, st)
+        sobj, scount, sdt = parse_buffer(sendbuf)
+        x = np.ascontiguousarray(
+            cv_pack(sobj, scount, sdt)).view(sdt.np_dtype)
+        n, r = comm.size, comm.rank
+        codec = st.codec
+        wdt = _work_dtype(rdt.np_dtype)
+        wire = codec.wire_nbytes(scount)
+        enc = codec.encode(x.astype(wdt, copy=False))
+        peers = [j for j in range(n) if j != r]
+        pidx = {p: k for k, p in enumerate(peers)}
+        out: List[Optional[np.ndarray]] = [None]
+
+        def sched():
+            got = yield Round(sends=[(enc, j) for j in peers],
+                              recvs=[(wire, j) for j in peers])
+            res = np.empty(n * scount, dtype=wdt)
+            for i in range(n):
+                payload = enc if i == r else got[pidx[i]]
+                res[i * scount:(i + 1) * scount] = codec.decode(
+                    payload, scount, wdt)
+            out[0] = res
+
+        self._run(comm, sched(), "coll.quant.allgather")
+        _quant.note_coll("allgather", len(peers) * scount * rdt.size,
+                         len(peers) * wire)
+        res = out[0][:rcount].astype(rdt.np_dtype)
+        cv_unpack(np.ascontiguousarray(res).view(np.uint8),
+                  robj, rcount, rdt)
 
 
 def quant_allreduce_body(comm, mode: str, block: int):
@@ -168,18 +382,30 @@ module = QuantMeshColl(_mesh.module)
 
 
 class QuantCollComponent(Component):
-    """The mesh branch of ``ompi_tpu/coll/quant.py:342-361``: the quantized
-    allreduce where the comm's verdict is active. Priority 110, above
-    ``mesh`` (100), so it owns the allreduce slot there and ``mesh``'s
-    allreduce is its fallback. The verdict is kept on every ``MeshComm``
-    it is asked about (``comm._quant_state``)."""
+    """``ompi_tpu/coll/quant.py:333-361``: the quantized module where the
+    comm's negotiated verdict is active (or strict-armed, process mode).
+    Priority 110, above ``mesh`` (100), ``hier`` (55) and ``tuned`` (30),
+    so it owns its slots there and their owners are its fallbacks. The
+    verdict is kept on every comm it is asked about
+    (``comm._quant_state``)."""
 
     NAME = "quant"
     PRIORITY = 110
 
+    _proc: Optional[QuantProcColl] = None
+
     def query(self, comm=None, **ctx):
+        from ompi_tpu_torch.comm.communicator import ProcComm
         from ompi_tpu_torch.parallel.mesh import MeshComm
 
+        if isinstance(comm, ProcComm) and comm.size > 1:
+            st = _negotiate.for_proc_comm(comm)
+            if st.active or st.strict:
+                comm._quant_state = st
+                if QuantCollComponent._proc is None:
+                    QuantCollComponent._proc = QuantProcColl()
+                return QuantCollComponent._proc
+            return None
         if not isinstance(comm, MeshComm):
             return None
         comm._quant_state = st = _negotiate.for_mesh_comm(comm)

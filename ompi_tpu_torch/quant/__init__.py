@@ -1,12 +1,13 @@
 """Quantized collectives: the settings and the counters.
 
-The port of the part of ``ompi_tpu/quant/__init__.py`` that mesh mode
-reads: the six ``quant_*`` variables (``:40-75``), read when a
-communicator is built (``negotiate``), and the three counters with their
-pvars (``:92-101``), bumped by the quantized allreduce (``coll/quant.py``),
-which also records ``spc`` ``quant_<verb>``; and the tcp btl's compression
-counters (``note_wire``, ``:122-135``), read by its
-``btl_tcp_compress_ratio`` and ``btl_tcp_compress_saved_bytes`` pvars.
+The port of ``ompi_tpu/quant/__init__.py``'s settings and counters: the six
+``quant_*`` variables (``:40-75``), read when a communicator is built
+(``negotiate``), and the three counters with their pvars (``:92-101``),
+bumped by the quantized collectives of both modes (``coll/quant.py``),
+which also record ``spc`` ``quant_<verb>`` and, with metrics on, the
+``quant_wire_pct`` histogram; and the tcp btl's compression counters
+(``note_wire``, ``:122-135``), read by its ``btl_tcp_compress_ratio`` and
+``btl_tcp_compress_saved_bytes`` pvars.
 """
 
 from __future__ import annotations
@@ -76,11 +77,16 @@ def note_coll(verb: str, raw_bytes: int, wire_bytes: int) -> None:
     """One quantized collective ran: ``raw_bytes`` is what the
     full-precision schedule would have sent, ``wire_bytes`` what the
     quantized one sent."""
+    from ompi_tpu_torch.runtime import metrics as _metrics
+
     with _lock:
         _counts["colls"] += 1
         _counts["bytes_wire"] += int(wire_bytes)
         _counts["bytes_saved"] += max(int(raw_bytes) - int(wire_bytes), 0)
     spc.record("quant_" + verb)
+    if _metrics._enable_var._value and raw_bytes > 0:
+        _metrics.observe("quant_wire_pct", 100.0 * wire_bytes / raw_bytes,
+                         verb=verb)
 
 
 def note_wire(raw_bytes: int, comp_bytes: int) -> None:

@@ -1,25 +1,38 @@
-"""Block-scaled quantization: the chunk layout, the wire sizes and the
-closed-form error bound.
+"""Block-scaled quantization codecs with closed-form error bounds.
 
-The port's copy of the part of ``ompi_tpu/quant/codec.py`` that the mesh
-path uses (``chunk_layout`` ``:56-63``, the sizing ``:115-123``,
-``error_bound`` ``:258-310``), in numpy, so that the bound can be checked
-where JAX is absent. The quantize and dequantize steps of the mesh path
-are tensor ops in ``coll/quant.py``; the reference's host ``encode`` and
-``decode`` (and the int4 packing) belong to process mode and are not
-ported.
+The port of ``ompi_tpu/quant/codec.py``: the chunk layout, the wire sizes,
+the error bound, and the host codec of process mode (``encode``,
+``decode``, ``reduce_encoded``, ``simulate_allreduce``), whose bytes equal
+the reference's, so that ranks of the two packages exchange codes in one
+quantized collective. The mesh path quantizes with tensor ops in
+``coll/quant.py``.
 
 A float vector is cut into blocks of ``block`` elements; each block carries
-one f32 scale derived from its amax, and the elements travel as int8 or
-float8_e4m3fn. One quantize/dequantize round trip of a block with amax
-``A`` errs at most ``A * eps`` an element, ``eps`` = 1/254 (int8) or 2**-4
-(fp8, amax scaled to 224). The quantized allreduce quantizes every rank's
+one f32 scale derived from its amax, and the elements ride the wire as
+int8, packed int4, or float8_e4m3fn. Rounding is round-to-nearest-even
+(``np.rint``; fp8 codes by ``_e4m3fn_codes``, the cast ``ml_dtypes``
+makes), so a fixed (world, block, bits, mode)
+config reproduces bitwise. Wire layout of one encoded vector of ``n``
+elements::
+
+    [nblocks * f32 little-endian scales][quantized payload]
+
+``nblocks = ceil(n / block)``; the payload is ``n`` bytes (int8/fp8) or
+``ceil(n/2)`` bytes (int4 nibbles, low nibble first). Non-finite blocks
+carry the ``+inf`` scale sentinel and the code points {+inf, -inf, nan,
+other}; their finite values decode to 0.
+
+One quantize/dequantize round trip of a block with amax ``A`` errs at most
+``A * eps`` an element, ``eps`` = 1/254 (int8), 1/14 (int4) or 2**-4 (fp8,
+amax scaled to 224). The quantized allreduce quantizes every rank's
 contribution once and the reduced block once more, so::
 
     |allreduce_quant - allreduce_exact|  <=  S * eps * (2 + eps) + slack
 
 with ``S`` the sum over ranks of the block amax and ``slack = S * 4 *
-(W + 2) * finfo(out_dtype).eps``. Non-finite blocks have an infinite bound.
+(W + 2) * finfo(out_dtype).eps``. Block scales are clamped to >= f32 tiny
+and <= f32 max (``A`` floored and capped alike in the bound). Non-finite
+blocks have an infinite bound.
 """
 
 from __future__ import annotations
@@ -45,10 +58,55 @@ def _work_dtype(dtype) -> np.dtype:
                     else np.float32)
 
 
+_E4M3_MIN_NORMAL = 2.0 ** -6
+_E4M3_NAN = 0x7F
+
+
+def _e4m3fn_codes(t: np.ndarray) -> np.ndarray:
+    """float8_e4m3fn codes (uint8) of a float array, as the reference's
+    ``ml_dtypes`` cast gives them: the value rounded to f32 (an f64 input
+    is rounded twice, as there), then to nearest e4m3fn, ties to even.
+    Signed zeros keep their sign; magnitudes that round past 448, inf and
+    nan give the nan code."""
+    with np.errstate(over="ignore"):  # past f32 range: inf, the nan code
+        x = np.asarray(t, dtype=np.float32).astype(np.float64).reshape(-1)
+    sign = np.where(np.signbit(x), 0x80, 0).astype(np.uint8)
+    a = np.abs(x)
+    fin = np.isfinite(a)
+    a = np.where(fin, a, 0.0)
+    _, e = np.frexp(a)                     # a = m * 2**e, m in [0.5, 1)
+    binade = np.maximum(e - 1, -6)         # subnormals share 2**-6's step
+    step = np.ldexp(1.0, binade - 3)       # 3 mantissa bits
+    r = np.rint(a / step) * step           # exact: step is a power of 2
+    _, e2 = np.frexp(r)
+    normal = r >= _E4M3_MIN_NORMAL
+    exp_r = np.where(normal, e2 - 1, 0)
+    mant = np.where(normal, np.ldexp(r, -exp_r) * 8.0 - 8.0, 0.0)
+    code_n = (exp_r + 7) * 8 + mant
+    code_s = r * 512.0                     # subnormal: r / 2**-9
+    code = np.where(normal, code_n, code_s)
+    code = np.where(fin & (r <= 448.0), code, _E4M3_NAN)
+    return code.astype(np.uint8) | sign
+
+
+def _e4m3fn_table() -> np.ndarray:
+    """The f64 value of each of the 256 float8_e4m3fn codes."""
+    c = np.arange(256)
+    exp = (c >> 3) & 0xF
+    mant = c & 7
+    mag = np.where(exp == 0, mant * 2.0 ** -9,
+                   np.ldexp(1.0 + mant / 8.0, exp - 7))
+    mag = np.where((c & 0x7F) == _E4M3_NAN, np.nan, mag)
+    return np.where(c & 0x80, -mag, mag)
+
+
+_E4M3FN_VALUES = _e4m3fn_table()
+
+
 class BlockCodec:
     """One (mode, bits, block) codec: ``mode`` is ``int8`` or ``fp8``;
-    ``bits`` is 8, or 4 (int mode), which sizes the reference's packed
-    nibbles; the mesh path quantizes only at 8 bits (``negotiate``)."""
+    ``bits`` is 8, or 4 for packed-nibble int quantization (process mode;
+    the mesh path quantizes only at 8 bits, ``negotiate``)."""
 
     def __init__(self, mode: str = "int8", bits: int = 8, block: int = 64):
         if mode not in ("int8", "fp8"):
@@ -101,6 +159,143 @@ class BlockCodec:
         padded = np.zeros(nb * self.block, dtype=_work_dtype(x.dtype))
         padded[:x.size] = np.asarray(x, dtype=padded.dtype).reshape(-1)
         return padded.reshape(nb, self.block)
+
+    def encode(self, x: np.ndarray) -> np.ndarray:
+        """Quantize a 1-D float vector into one contiguous uint8 wire
+        payload (round to nearest even), the reference's bytes."""
+        blocks = self._blocks(x)
+        nb = blocks.shape[0]
+        amax = np.max(np.abs(blocks), axis=1)  # nan propagates
+        finite = np.isfinite(amax)
+        scale = np.ones(nb, dtype=np.float32)
+        # the f64-amax-past-f32-range divide overflows to inf by design
+        # (clamped to f32 max right below)
+        with np.errstate(divide="ignore", invalid="ignore",
+                         over="ignore"):
+            np.divide(amax,
+                      self._fp8_target if self.mode == "fp8" else self.qmax,
+                      out=scale, where=finite & (amax > 0),
+                      casting="unsafe")
+        # clamp to the smallest normal f32 (a tiny-denormal amax underflows
+        # amax/qmax to 0) and to the largest (an f64 block past f32 range
+        # would read as the non-finite sentinel)
+        np.maximum(scale, np.finfo(np.float32).tiny, out=scale,
+                   where=finite & (amax > 0))
+        np.minimum(scale, np.finfo(np.float32).max, out=scale,
+                   where=finite & (amax > 0))
+        scale[~finite] = np.inf  # sentinel: block carries non-finite data
+
+        if self.mode == "fp8":
+            q = np.zeros(blocks.shape, dtype=np.uint8)
+            if finite.any():
+                t = blocks[finite] / scale[finite, None]
+                q[finite] = _e4m3fn_codes(t).reshape(t.shape)
+            if not finite.all():
+                xb = blocks[~finite]
+                qb = np.zeros(xb.shape, dtype=np.uint8)
+                qb[xb == np.inf] = 0x7E       # 448 = +inf code point
+                qb[xb == -np.inf] = 0xFE      # -448
+                qb[np.isnan(xb)] = _E4M3_NAN
+                q[~finite] = qb
+            payload = q.reshape(-1)
+        else:
+            q = np.zeros(blocks.shape, dtype=np.int8)
+            if finite.any():
+                t = blocks[finite] / scale[finite, None]
+                q[finite] = np.clip(np.rint(t), -self.qmax,
+                                    self.qmax).astype(np.int8)
+            if not finite.all():
+                xb = blocks[~finite]
+                qb = np.zeros(xb.shape, dtype=np.int8)
+                qb[xb == np.inf] = int(self.qmax)
+                qb[xb == -np.inf] = -int(self.qmax)
+                qb[np.isnan(xb)] = -int(self.qmax) - 1  # nan code point
+                q[~finite] = qb
+            if self.bits == 4:
+                flat = q.reshape(-1)[: x.size]
+                nibbles = (flat.astype(np.int16) + 8).astype(np.uint8)
+                if nibbles.size % 2:
+                    nibbles = np.concatenate(
+                        [nibbles, np.full(1, 8, np.uint8)])
+                pairs = nibbles.reshape(-1, 2)
+                payload = (pairs[:, 0] | (pairs[:, 1] << 4)).astype(np.uint8)
+            else:
+                payload = np.ascontiguousarray(q).view(np.uint8).reshape(-1)
+        payload = payload[: self.payload_nbytes(x.size)]
+        out = np.empty(self.wire_nbytes(x.size), dtype=np.uint8)
+        out[: 4 * nb] = scale.astype("<f4").view(np.uint8)
+        out[4 * nb:] = payload
+        return out
+
+    def decode(self, payload: np.ndarray, n: int,
+               dtype=np.float32) -> np.ndarray:
+        """Dequantize ``n`` elements from one wire payload into the work
+        dtype of ``dtype`` (f64 in, f64 math; anything else f32)."""
+        nb = self.nblocks(n)
+        raw = np.frombuffer(bytes(payload), dtype=np.uint8)
+        scale = raw[: 4 * nb].view("<f4").astype(np.float32)
+        body = raw[4 * nb: 4 * nb + self.payload_nbytes(n)]
+        wdt = _work_dtype(dtype)
+        if self.mode == "fp8":
+            q = _E4M3FN_VALUES[body].astype(wdt)
+        elif self.bits == 4:
+            lo = (body & 0x0F).astype(np.int16) - 8
+            hi = (body >> 4).astype(np.int16) - 8
+            q = np.empty(body.size * 2, dtype=np.int16)
+            q[0::2] = lo
+            q[1::2] = hi
+            q = q[:n].astype(wdt)
+        else:
+            q = body.view(np.int8).astype(wdt)
+        q = q[:n]
+        pad = nb * self.block - n
+        if pad:
+            q = np.concatenate([q, np.zeros(pad, dtype=wdt)])
+        blocks = q.reshape(nb, self.block)
+        bad = np.isinf(scale)
+        with np.errstate(invalid="ignore"):
+            out = blocks * scale[:, None].astype(wdt)
+        if bad.any():
+            qb = blocks[bad]
+            ob = np.zeros(qb.shape, dtype=wdt)
+            ob[qb == self.qmax] = np.inf
+            ob[qb == -self.qmax] = -np.inf
+            if self.mode == "fp8":
+                ob[np.isnan(qb)] = np.nan
+            else:
+                ob[qb == -self.qmax - 1] = np.nan
+            out[bad] = ob
+        return out.reshape(-1)[:n]
+
+    def reduce_encoded(self, encoded, per: int, dtype=np.float32):
+        """Sum decoded chunks in ascending rank order (the canonical
+        accumulation order: process-mode ranks and the offline simulator
+        share it, so results agree bitwise)."""
+        acc = self.decode(encoded[0], per, dtype)
+        # sentinel blocks legitimately reduce inf + (-inf) -> nan
+        with np.errstate(invalid="ignore"):
+            for e in encoded[1:]:
+                acc = acc + self.decode(e, per, dtype)
+        return acc
+
+    def simulate_allreduce(self, xs: np.ndarray) -> np.ndarray:
+        """Offline oracle of the quantized allreduce: quantize every rank's
+        chunk, reduce in rank order, requantize, dequantize — the wire
+        schedule, bitwise."""
+        xs = np.asarray(xs)
+        world, n = xs.shape
+        per, padded = chunk_layout(n, world, self.block)
+        wdt = _work_dtype(xs.dtype)
+        buf = np.zeros((world, padded), dtype=wdt)
+        buf[:, :n] = xs
+        out = np.empty(padded, dtype=wdt)
+        for c in range(world):
+            enc = [self.encode(buf[r, c * per:(c + 1) * per])
+                   for r in range(world)]
+            red = self.reduce_encoded(enc, per, wdt)
+            out[c * per:(c + 1) * per] = self.decode(
+                self.encode(red), per, wdt)
+        return out[:n].astype(xs.dtype if xs.dtype.kind == "f" else wdt)
 
     def error_bound(self, x: np.ndarray, out_dtype=None) -> np.ndarray:
         """Closed-form worst-case absolute error, per element, in f64.

@@ -1,27 +1,46 @@
-"""The quantization verdict of a mesh-mode communicator.
+"""Per-communicator quant codec negotiation over the modex card plane.
 
-The port of the part of ``ompi_tpu/quant/negotiate.py`` that mesh mode uses
-(``QuantState``, ``local_card``, ``decide`` ``:150-208``, ``for_mesh_comm``
-``:241-255``). In process mode every rank publishes a card of its settings
-and all ranks decide over the same cards; mesh mode is single-controller,
-so its verdict reads the local settings as every member's card. Process
-mode publishes the card (``CARD_KEY``, ``card_json``, ``:104-108``) at
-wireup; the process-mode verdict comes with the host path of coll/quant.
+The port of ``ompi_tpu/quant/negotiate.py``. If the quantized module were
+selected from each rank's local settings, a rank launched with
+``quant_enable`` unset would run the tuned schedule while its peers run
+the quantized one — mismatched tags, a permanent hang. So every rank
+publishes its settings as a modex card during wireup (``CARD_KEY``,
+``card_json``, before the first fence), and by the time any communicator
+is built every rank holds every member's card: the verdict is a pure
+function of shared data (``decide``), and all ranks quantize, fall back to
+full precision, or (``quant_strict``) raise the same error on every
+rank's quant-eligible collectives. The cards are the reference's, so
+ranks of the two packages reach one verdict in one job.
+
+Mesh mode is single-controller: its verdict reads the local settings as
+every member's card.
 
 fp8 availability is whether this torch has ``float8_e4m3fn`` (the
-reference asks for ``ml_dtypes``).
+reference asks for ``ml_dtypes``); the host codec's fp8 codes are the
+port's own rounding, equal to the reference's bytes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 from typing import Dict, List
 
 import torch
 
 from ompi_tpu_torch import quant as _quant
 from ompi_tpu_torch.quant.codec import make_codec
+from ompi_tpu_torch.utils.show_help import register_topic, show_help
+
+register_topic(
+    "quant", "negotiate-fallback",
+    "Quantized collectives requested but not negotiated on "
+    "communicator '%(comm)s': %(reason)s.\n"
+    "All members fell back to full precision together (set "
+    "quant_strict to turn this into an error). Every rank must "
+    "launch with quant_enable set and matching quant_bits / "
+    "quant_block / quant_mode for the quantized path to engage.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +81,38 @@ def card_json() -> str:
 
 
 CARD_KEY = "quant.card"
+
+_card_lock = threading.Lock()
+_card_cache: Dict[int, Dict] = {}
+
+
+def _member_card(modex, world_rank: int) -> Dict:
+    with _card_lock:
+        c = _card_cache.get(world_rank)
+    if c is not None:
+        return c
+    try:
+        # cards are published before the publisher's first fence, and a
+        # comm holds only ranks whose init completed: post-fence a missing
+        # card never appears, so don't wait
+        c = json.loads(modex.get(world_rank, CARD_KEY, timeout=0.0))
+    except TimeoutError:
+        # a peer without a card negotiates as disabled — the verdict every
+        # rank reaches alike, because the key is absent for all. Anything
+        # other than an absent key propagates: mapping it to disabled
+        # would let one rank's hiccup split the verdict
+        c = {"enable": 0, "_missing": True}
+    with _card_lock:
+        _card_cache[world_rank] = c
+    return c
+
+
+def invalidate_cards() -> None:
+    """Drop every cached member card: world membership changed
+    (shrink/respawn), and a respawned rank re-publishes its card under
+    its predecessor's world rank."""
+    with _card_lock:
+        _card_cache.clear()
 
 
 def decide(cards: List[Dict]) -> QuantState:
@@ -116,6 +167,36 @@ def decide(cards: List[Dict]) -> QuantState:
     return st
 
 
+_warned = set()
+
+
+def for_proc_comm(comm) -> QuantState:
+    """The verdict of a process-mode communicator (at coll selection): the
+    members' modex cards, never a message."""
+    from ompi_tpu_torch.runtime import wireup
+
+    if comm.size < 2:
+        return INACTIVE
+    ctx = wireup._ctx
+    if ctx is None:
+        # no modex plane (hand-built comms): the local card, as every
+        # member's
+        cards = [local_card()] * comm.size
+    else:
+        modex = ctx["modex"]
+        cards = [_member_card(modex, comm.group.world_rank(i))
+                 for i in range(comm.size)]
+    st = decide(cards)
+    if not st.active and not st.strict and \
+            any(c.get("enable") for c in cards):
+        key = (st.reason,)
+        if key not in _warned:
+            _warned.add(key)
+            show_help("quant", "negotiate-fallback",
+                      comm=getattr(comm, "name", "?"), reason=st.reason)
+    return st
+
+
 def for_mesh_comm(comm) -> QuantState:
     """The mesh-mode verdict: local settings only. The mesh path quantizes
     whole-axis comms of at least two ranks at 8 bits; anything else takes
@@ -130,3 +211,9 @@ def for_mesh_comm(comm) -> QuantState:
             reason="mesh quant path needs an 8-bit codec on a "
                    "whole-axis comm with >= 2 devices")
     return st
+
+
+def _reset_for_testing() -> None:
+    with _card_lock:
+        _card_cache.clear()
+    _warned.clear()

@@ -68,6 +68,11 @@ import ompi_tpu_torch.coll.basic  # noqa: F401,E402
 import ompi_tpu_torch.coll.tuned  # noqa: F401,E402
 import ompi_tpu_torch.coll.nbc  # noqa: F401,E402
 import ompi_tpu_torch.coll.neighbor  # noqa: F401,E402
+import ompi_tpu_torch.coll.han  # noqa: F401,E402
+import ompi_tpu_torch.coll.hier.compose  # noqa: F401,E402  (hierarchical composer)
+import ompi_tpu_torch.coll.smcoll  # noqa: F401,E402
+import ompi_tpu_torch.coll.adaptive  # noqa: F401,E402
+import ompi_tpu_torch.coll.quant  # noqa: F401,E402  (quantized collectives)
 import ompi_tpu_torch.hook.comm_method  # noqa: F401,E402
 import ompi_tpu_torch.runtime.sanitizer  # noqa: F401,E402  (cvars + hooks)
 import ompi_tpu_torch.runtime.wireup  # noqa: F401,E402  (ckpt cvar, refusals)

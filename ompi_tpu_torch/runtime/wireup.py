@@ -2,12 +2,13 @@
 
 The port of ``ompi_tpu/runtime/wireup.py``: the same modex cards and
 fences, so the port's ranks and the JAX package's wire up in one job. It
-binds the planes the port has (topology, sanitizer, metrics, forensics,
-linkmodel, revoke, failure propagation, heartbeat detector, the tcp link
-upcall, idle sources and the progress thread); the binds of later parts
+binds the planes the port has (topology, sanitizer, metrics, hier's
+retune plane, forensics, linkmodel, revoke, failure propagation,
+heartbeat detector, the tcp link upcall, idle sources and the progress
+thread); the binds of later parts
 of the port are named in ``PENDING_BINDS``, and a launch that needs one
-of them (a spawned child, diskless checkpointing, quantized host
-collectives) raises ``MPIError`` naming it instead of running half-wired.
+of them (a spawned child, diskless checkpointing) raises ``MPIError``
+naming it instead of running half-wired.
 Reference: the RTE/PMIx glue (ompi/runtime/ompi_rte.c:538-581 PMIx_Init,
 OPAL_MODEX_SEND/RECV macros pmix-internal.h:266,577) and the instance
 bring-up ordering of ompi/instance/instance.c:362-730 (framework opens →
@@ -25,18 +26,11 @@ from ompi_tpu_torch.mca.var import register_var
 _ctx: Optional[dict] = None
 
 # The modules the reference's init binds that the port does not have yet:
-# those ``ompi_tpu/runtime/state.py`` imports at module level (its coll
-# components) and those ``ompi_tpu/runtime/wireup.py`` init_process_mode
-# imports (the agreement engine, diskless checkpointing, hier's retune
-# plane, the dpm bridge of a spawned child), each with the part of the
-# port that brings it.
+# those ``ompi_tpu/runtime/state.py`` imports at module level and those
+# ``ompi_tpu/runtime/wireup.py`` init_process_mode imports (the agreement
+# engine, diskless checkpointing, the dpm bridge of a spawned child), each
+# with the part of the port that brings it.
 PENDING_BINDS = (
-    ("coll.han", "A.14.6"),
-    ("coll.hier.compose", "A.14.6"),
-    ("coll.hier.decide", "A.14.6"),
-    ("coll.smcoll", "A.14.6"),
-    ("coll.adaptive", "A.14.6"),
-    ("coll.quant", "A.14.6"),
     ("runtime.dpm", "A.14.7"),
     ("ft.era", "A.14.8"),
     ("ft.diskless", "A.14.8"),
@@ -55,18 +49,13 @@ _ckpt_enable_var = register_var(
 def refuse_unsupported() -> None:
     """Raise ``MPIError`` for a launch that needs a pending bind: a
     spawned child (``OMPI_TPU_BASE``/``OMPI_TPU_JOB`` set: the dpm bridge
-    to its parent), ``ft_ckpt_enable`` (diskless checkpointing) or
-    ``quant_enable`` (the process-mode quantized allreduce)."""
-    from ompi_tpu_torch import quant as _quant
-
+    to its parent) or ``ft_ckpt_enable`` (diskless checkpointing)."""
     missing = []
     if os.environ.get("OMPI_TPU_BASE") is not None \
             or os.environ.get("OMPI_TPU_JOB") is not None:  # mpilint: disable=raw-environ — launcher wire-up plumbing
         missing.append("runtime.dpm (a spawned child job)")
     if _ckpt_enable_var._value:
         missing.append("ft.diskless (ft_ckpt_enable)")
-    if _quant._enable_var._value:
-        missing.append("coll.quant (quant_enable)")
     if missing:
         raise MPIError(ERR_UNSUPPORTED_OPERATION,
                        "this launch needs what the torch port does not "
@@ -316,7 +305,10 @@ def init_process_mode():
     # handler-fence): the sanitizer/metrics init_bottom hooks read
     # world_pml(), which is None until init_process_mode RETURNS — so a
     # fast peer racing through init_bottom into its first collective
-    # could ship a stamp/probe this rank's unbound tag would drop.
+    # could ship a stamp/probe this rank's unbound tag would drop. The
+    # hier retune plane has no init_bottom hook at all (its lazy ensure
+    # ran only when this rank's own composed call finished).
+    from ompi_tpu_torch.coll.hier import decide as hier_decide
     from ompi_tpu_torch.runtime import forensics as rt_forensics
     from ompi_tpu_torch.runtime import linkmodel as rt_linkmodel
     from ompi_tpu_torch.runtime import metrics as rt_metrics
@@ -324,6 +316,7 @@ def init_process_mode():
 
     rt_sanitizer.bind_plane(pml)
     rt_metrics.bind_plane(pml)
+    hier_decide.bind_plane(pml)
     # stall-forensics dump-request plane (-4800): a fast peer's stall
     # sentinel can latch and request this rank's dump the moment the
     # fence releases it — same pre-fence discipline as the planes above

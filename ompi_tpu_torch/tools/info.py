@@ -40,6 +40,10 @@ def _load_everything() -> None:
     import ompi_tpu_torch.btl.self_btl  # noqa: F401 btl framework: self
     import ompi_tpu_torch.btl.sm  # noqa: F401 btl_sm_*
     import ompi_tpu_torch.btl.tcp  # noqa: F401 btl_tcp_* and their pvars
+    import ompi_tpu_torch.coll.smcoll  # noqa: F401 coll: sm, coll_sm_*
+    import ompi_tpu_torch.coll.han  # noqa: F401 coll: han, coll_han_*
+    import ompi_tpu_torch.coll.hier.compose  # noqa: F401 coll: hier, coll_hier_*
+    import ompi_tpu_torch.coll.adaptive  # noqa: F401 coll: adapt, coll_adapt_*
 
 
 def print_header(out) -> None:

@@ -42,7 +42,10 @@ from tests.test_torch_procmode_fixture import (
     run_renamed_tests,
 )
 
-PIN = (("coll_coll", "^sm,adapt,han,hier,quant"),)
+# the selection tests/test_coll_round.py:410-413 launches check_coll_round.py
+# under: the script measures the round engine's copies, which coll/sm's
+# segment Allreduce never makes
+ROUND_ENGINE = (("coll_coll", "^sm,adapt,han,hier,quant"),)
 TAG, CID = -77, 9101
 
 
@@ -56,8 +59,8 @@ def test_mixed_check_coll_round_4_ranks(tmp_path):
     r = run_mpi(4, mixed_program(tmp_path),
                 os.path.join(REPO, "tests", "procmode",
                              "check_coll_round.py"),
-                renamed("check_coll_round.py", tmp_path), mca=PIN,
-                timeout=240)
+                renamed("check_coll_round.py", tmp_path),
+                mca=ROUND_ENGINE, timeout=240)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.count("COLLROUND-OK") == 4
     assert r.stdout.count("COLLROUND-EQ") == 4
@@ -279,6 +282,27 @@ def test_algorithm_bytes_equal_the_reference_rank_for_rank(algo, n, op,
     want = _run(_pkg(JAX), algo, n, inputs, bf16, op, nseg)
     got = _run(_pkg(PORT), algo, n, inputs, bf16, op, nseg)
     assert got == want
+
+
+def test_rank_for_rank_cases_leave_each_package_pool_as_they_found_it():
+    """A 4-rank ring of 3000-byte blocks runs on each package's round
+    engine, receiving into the 4096-byte class: the process-wide class
+    pools of both packages (their free lists, outstanding blocks, hits and
+    misses) are as they were, so the JAX package's
+    ``test_pooled_recv_recycles_on_completion`` in the same worker counts
+    only its own blocks."""
+    def state(mpool):
+        p = mpool._class_pools.get(4096)
+        return None if p is None else (len(p._free), p.outstanding,
+                                       p.hits, p.misses)
+
+    pkgs = (_pkg(JAX), _pkg(PORT))
+    before = [state(pkg.mpool) for pkg in pkgs]
+    inputs = _inputs("float32", 4, 3000, seed=3000)
+    outs = [_run(pkg, "allreduce_ring", 4, inputs, False, "SUM")
+            for pkg in pkgs]
+    assert outs[0] == outs[1]
+    assert [state(pkg.mpool) for pkg in pkgs] == before
 
 
 # ------------------------------------------------------------ buffer kinds

@@ -15,6 +15,7 @@ package's, on the CPU.
 Every variable a test sets is put back (``tests/test_torch_mca_fixture.py``).
 """
 
+import importlib
 import json
 import os
 import subprocess
@@ -77,6 +78,15 @@ SHARED.update((n, n) for n in [
     "btl_tcp_link_backoff_ms", "btl_tcp_link_deadline_s",
     "btl_tcp_retx_adaptive", "btl_tcp_rtt_min_samples",
     "runtime_idle_block_us"])
+# and those of the rest of the host collectives
+SHARED.update((n, n) for n in [
+    "coll_sm_enable", "coll_sm_chunk_bytes", "coll_han_fake_nodes",
+    "coll_adapt_enable", "coll_adapt_segsize", "coll_hier_enable",
+    "coll_hier_fake_nodes", "coll_hier_fake_slices", "coll_hier_min_bytes",
+    "coll_hier_selftune", "coll_hier_rescore_interval",
+    "coll_hier_retune_factor", "coll_hier_min_samples",
+    "coll_hier_retune_min_us", "coll_hier_inject_stage",
+    "coll_hier_inject_delay_ms", "coll_hier_inject_after"])
 
 
 def _load_jax():
@@ -99,6 +109,10 @@ def _load_jax():
     import ompi_tpu.btl.self_btl  # noqa: F401
     import ompi_tpu.btl.sm  # noqa: F401
     import ompi_tpu.btl.tcp  # noqa: F401
+    import ompi_tpu.coll.smcoll  # noqa: F401
+    import ompi_tpu.coll.han  # noqa: F401
+    import ompi_tpu.coll.hier.compose  # noqa: F401
+    import ompi_tpu.coll.adaptive  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -115,7 +129,22 @@ def test_shared_var_has_the_reference_default_type_level_enum(name):
     assert t.env_name == "OMPI_TPU_MCA_" + name
 
 
+def _load_jax_counterparts():
+    """Import the JAX package's module of every port module this process
+    has loaded: a module registers its variables when it is imported, so
+    the comparison must not depend on which test files ran before it in
+    the worker."""
+    renamed = {"coll.mesh": "coll.xla", "accelerator.cuda": "accelerator.tpu"}
+    for mod in sorted(m for m in sys.modules if m.startswith("ompi_tpu_torch.")):
+        rel = mod[len("ompi_tpu_torch."):]
+        try:
+            importlib.import_module("ompi_tpu." + renamed.get(rel, rel))
+        except ImportError:
+            pass  # a module of the port alone
+
+
 def test_the_port_registers_no_var_the_reference_lacks():
+    _load_jax_counterparts()
     jnames = set(jvar.all_vars())
     extra = {n for n in tvar.all_vars() if n not in jnames}
     assert extra == {"accelerator_cuda_mem_bw"}

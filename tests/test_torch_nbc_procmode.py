@@ -24,7 +24,6 @@ from tests.test_torch_procmode_fixture import (
     run_renamed_tests,
 )
 
-PIN = (("coll_coll", "^sm,adapt,han,hier,quant"),)
 NO_MESH = (("from ompi_tpu_torch.parallel import mesh_world",
             "mesh_world = None  # the mesh cases: tests/test_torch_nbc.py"),)
 
@@ -40,6 +39,6 @@ def test_nbc_procmode_cases_on_the_port(tmp_path):
 def test_mixed_check_nbc(tmp_path, np_):
     r = run_mpi(np_, mixed_program(tmp_path),
                 os.path.join(REPO, "tests", "procmode", "check_nbc.py"),
-                renamed("check_nbc.py", tmp_path), mca=PIN)
+                renamed("check_nbc.py", tmp_path))
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.count("NBC-OK") == np_

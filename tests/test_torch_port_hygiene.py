@@ -92,7 +92,10 @@ def test_the_scan_sees_a_forbidden_import():
     "ompi_tpu_torch.examples.hello", "ompi_tpu_torch.examples.ring",
     "ompi_tpu_torch.examples.connectivity", "ompi_tpu_torch.coll.algorithms",
     "ompi_tpu_torch.coll.tuned", "ompi_tpu_torch.coll.nbc",
-    "ompi_tpu_torch.coll.neighbor", "ompi_tpu_torch.runtime.session"])
+    "ompi_tpu_torch.coll.neighbor", "ompi_tpu_torch.runtime.session",
+    "ompi_tpu_torch.coll.han", "ompi_tpu_torch.coll.hier.decide",
+    "ompi_tpu_torch.coll.hier.compose", "ompi_tpu_torch.coll.smcoll",
+    "ompi_tpu_torch.coll.adaptive", "ompi_tpu_torch.examples.hello_sessions"])
 def test_modules_import_without_building(mod):
     importlib.import_module(mod)
     from ompi_tpu_torch.ops import _build

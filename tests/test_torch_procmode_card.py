@@ -10,9 +10,10 @@ for bit. The others need the card and skip without one: the counterpart
 of the JAX package's ``tests/procmode/check_accelerator.py`` as a 2-rank
 sm job with CUDA tensors and device buffers (and a raw CUDA tensor refused
 as a receive buffer, as a ``jax.Array`` is), a bf16 tensor on the card
-staged to the host and back, and phase 4n at full size
-(``chip_smoke.phase_collstack``; its CPU rehearsal is
-``tests/test_torch_collstack_card.py``). The file imports torch and the
+staged to the host and back, and phases 4n and 4o at full size
+(``chip_smoke.phase_collstack`` and ``phase_hostcoll``; their CPU
+rehearsals are ``tests/test_torch_collstack_card.py`` and
+``tests/test_torch_hostcoll_card.py``). The file imports torch and the
 port only, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_procmode_card.py
@@ -185,6 +186,25 @@ def test_phase_4n_on_the_card():
         assert algos["Allreduce SUM f32 4 KB"] == \
             "allreduce_recursive_doubling"
         assert algos["Allreduce SUM f32 64 MB"].startswith("allreduce_ring")
+
+
+@pytest.mark.cuda
+def test_phase_4o_on_the_card():
+    """Phase 4o at full size on the card: coll/sm's slots (or its decline
+    off x86_64), hier's composition on two fake nodes, han and adapt, and
+    the quantized host collectives with int8 and fp8 codes and a fallback
+    job, each exact result bit-exact on the card and each quantized one
+    within the codec's bound (the rehearsal on the CPU:
+    ``tests/test_torch_hostcoll_card.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    jobs = cs.phase_hostcoll(torch.cuda.get_device_name(0))
+    assert [(j["job"], j["ranks"]) for j in jobs] == [
+        (name, n) for name, n, _ in cs.HC_JOBS]
+    comms = jobs[0]["comms"]
+    assert comms["hier"]["plans"]["allreduce"] == "hier"
+    assert comms["han"]["served"]["Bcast bf16 64 MB"] == "adapt"
+    assert [j["quant_colls"] for j in jobs[1:]] == [4, 4, 0]
 
 
 @pytest.mark.cuda

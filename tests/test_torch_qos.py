@@ -37,7 +37,10 @@ from ompi_tpu_torch.mca import var as tvar
 from ompi_tpu_torch.pml import base as tbase
 from tests.test_torch_btl_fixture import (  # noqa: F401 fixtures
     P, btl_clean, load)
-from tests.test_torch_mca_fixture import mca_watched  # noqa: F401 fixture
+from tests.test_torch_mca_fixture import (  # noqa: F401 fixture
+    VarSetter,
+    mca_watched,
+)
 
 NBC_CID_BIT = 1 << 28
 COLL_CID_BIT = 1 << 30
@@ -115,6 +118,30 @@ def test_classify_grid_and_counters_equal(tag_map, mca_watched):
         assert tq.classify(-4900, 0) == tq.LATENCY   # link probes
         # positive-tag entries apply only on the plane-free user cid
         assert tq.classify(RESPAWN_STATE_TAG, 7 | NBC_CID_BIT) == tq.NORMAL
+
+
+@pytest.mark.parametrize("tag_map", [
+    "-4600:bulk,-4500:bulk,-4242:latency,-4243:latency,-4244:latency,"
+    "-4245:latency", "-4400:bulk", ""])
+def test_a_tag_map_case_leaves_the_jax_map_as_it_found_it(tag_map):
+    """The classify grid's setting and its restore through the watchers:
+    after it, the JAX package's map value and its cached class of the link
+    probe tag (``tests/test_linkmodel.py::test_probe_tag_classifies_latency``
+    reads it) are what they were before."""
+    from ompi_tpu.runtime.linkmodel import LINKPROBE_TAG
+
+    def state():
+        return jvar.all_vars()["qos_tag_map"]._value, \
+            jq._tag_class(LINKPROBE_TAG)
+
+    before = state()
+    setter = VarSetter(watched=True)
+    try:
+        setter.both("qos", "tag_map", tag_map)
+        assert _classify_all(tq) == _classify_all(jq)
+    finally:
+        setter.restore()
+    assert state() == before
 
 
 def test_tag_map_cvar_rewrite_takes_effect(mca_watched):

@@ -29,8 +29,6 @@ from tests.test_torch_procmode_fixture import (
     run_renamed_tests,
 )
 
-PIN = (("coll_coll", "^sm,adapt,han,hier,quant"),)
-
 
 def test_sessions_cases_on_the_port(tmp_path):
     r = run_renamed_tests("test_sessions.py", tmp_path)
@@ -41,8 +39,7 @@ def test_sessions_cases_on_the_port(tmp_path):
 def test_mixed_sessions_only_program(tmp_path):
     r = run_mpi(3, mixed_program(tmp_path),
                 os.path.join(REPO, "tests", "procmode", "check_sessions.py"),
-                renamed("check_sessions.py", tmp_path), "sessions_only",
-                mca=PIN)
+                renamed("check_sessions.py", tmp_path), "sessions_only")
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.count("SESS-OK") == 3
 

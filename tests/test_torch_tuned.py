@@ -13,7 +13,10 @@
   and so is the segment count of the segmented ring.
 - ``check_tuned.py`` in a job of JAX-package and port ranks, and the
   process-mode selection (each slot's winner and fallbacks on six kinds
-  of comm) equal between a JAX-package rank and a port rank of one job.
+  of comm) equal between a JAX-package rank and a port rank of one job,
+  under the pin of ``coll_coll``; and at the default selection, with
+  ``coll_hier_fake_nodes=2``, ``coll_han_fake_nodes=2`` (hier off),
+  ``coll_adapt_enable=1`` and ``quant_enable=1``.
 """
 
 import importlib
@@ -221,3 +224,69 @@ def test_process_mode_providers_equal_the_reference(tmp_path):
         ("tuned", "nbc", "basic")
     assert got[1]["cart"][0]["neighbor_allgather"] == "neighbor"
     assert got[1]["graph"][0]["neighbor_alltoall"] == "neighbor"
+
+
+SETTINGS = '''\
+import json
+import platform
+import {pkg}
+from {pkg} import COMM_WORLD as W
+from {pkg}.mca.var import get_var, set_var
+
+# each setting on a Dup of the world (the world keeps the launch's)
+SETS = {{"hier_fake_nodes_2": [("coll_hier", "fake_nodes", 2)],
+         "han_fake_nodes_2": [("coll_han", "fake_nodes", 2),
+                              ("coll_hier", "enable", False)],
+         "adapt_enable": [("coll_adapt", "enable", True)]}}
+r = W.Get_rank()
+out = {{"world": [W.coll.providers, W.coll.fallback_providers],
+        "machine": platform.machine()}}
+for name, sets in SETS.items():
+    saved = [(fw, v, get_var(fw, v)) for fw, v, _ in sets]
+    for fw, v, value in sets:
+        set_var(fw, v, value)
+    c = W.Dup()
+    out[name] = [c.coll.providers, c.coll.fallback_providers]
+    for fw, v, value in saved:
+        set_var(fw, v, value)
+print(f"PROVIDERS {{r}} " + json.dumps(out, sort_keys=True), flush=True)
+{pkg}.Finalize()
+'''
+
+
+@pytest.mark.parametrize("launch", ["default", "quant_enable"])
+def test_process_mode_providers_at_each_setting_equal_the_reference(
+        tmp_path, launch):
+    """A 4-rank job at the default selection (even ranks the JAX package,
+    odd ranks the port): each slot's winner and its fallbacks for the
+    world and for Dups under ``coll_hier_fake_nodes=2``, under
+    ``coll_han_fake_nodes=2`` with ``coll_hier_enable=0`` and under
+    ``coll_adapt_enable=1``, equal on every rank; and the same in a job
+    launched with ``quant_enable=1``."""
+    import json
+
+    progs = {}
+    for pkg in (JAX, PORT):
+        progs[pkg] = tmp_path / f"settings_{pkg}.py"
+        progs[pkg].write_text(SETTINGS.format(pkg=pkg))
+    mca = (("quant_enable", "1"),) if launch == "quant_enable" else ()
+    r = run_mpi(4, mixed_program(tmp_path), progs[JAX], progs[PORT],
+                mca=mca, timeout=180)
+    assert r.returncode == 0, r.stdout + r.stderr
+    got = {}
+    dec = json.JSONDecoder()
+    for rank in range(4):
+        i = r.stdout.index(f"PROVIDERS {rank} ") + len(f"PROVIDERS {rank} ")
+        got[rank] = dec.raw_decode(r.stdout, i)[0]
+    assert got[0] == got[1] == got[2] == got[3]
+    world, hier, han = (got[1][k][0] for k in (
+        "world", "hier_fake_nodes_2", "han_fake_nodes_2"))
+    sm = "sm" if got[1]["machine"] in ("x86_64", "AMD64") else "tuned"
+    quant = launch == "quant_enable"
+    assert world["allreduce"] == ("quant" if quant else sm)
+    assert world["bcast"] == sm
+    assert (hier["allreduce"], hier["bcast"]) == (
+        "quant" if quant else "hier", "hier")
+    assert (han["allreduce"], han["barrier"]) == (
+        "quant" if quant else "han", "han")
+    assert "adapt" in got[1]["adapt_enable"][1]["bcast"]
